@@ -1,0 +1,23 @@
+"""Intersection entry points of the integrator.
+
+Port of `mafrixraytracing_tpu/ops/dispatch.py` (`intersect_shade_soa` `:81`,
+`occluded_soa` `:102`). There is no backend switch: the tensors' device
+decides. On a CUDA device the searches run the hand-written kernels, on the
+CPU their plain versions (see `ops.intersect` and `ops.unpack`).
+"""
+from __future__ import annotations
+
+from mafrixraytracing_torch.geometry import intersect as isect
+from mafrixraytracing_torch.ops import intersect as ops_isect
+
+
+def intersect_shade_soa(scene, o, d, t_min: float, t_max, packed=None):
+    """Closest-hit query -> (HitS, ShadingS): detached search, then the
+    differentiable attribute recompute from the packed table."""
+    t, idx = ops_isect.find_closest_soa(scene, o, d, t_min, t_max)
+    return isect.hit_attributes_soa(scene, o, d, idx, t, packed=packed)
+
+
+def occluded_soa(scene, o, d, t_min: float, t_max):
+    """Any-hit (shadow) query; visibility is not differentiated."""
+    return ops_isect.occluded_soa(scene, o, d, t_min, t_max)

@@ -1,0 +1,367 @@
+"""Closest-hit and any-hit search over 128-triangle clusters.
+
+Port of the flat, single-level path of
+`mafrixraytracing_tpu/ops/intersect_pallas.py`, in two phases:
+
+1. **Cull (PyTorch ops).** Slab-test every ray against every cluster AABB as
+   one dense (B, C) computation, take the entry distance per 128-ray tile,
+   and sort each tile's surviving clusters front to back (`_cull`, a stable
+   `torch.sort` in place of the TPU's bitonic network). `far` is each ray's
+   exit from its last surviving cluster.
+2. **Walk (CUDA kernels, `csrc/intersect.cu`).** Kernel A (`closest_kernel`)
+   finds each ray's closest hit; kernel B (`anyhit_kernel`) answers shadow
+   queries. Both walk a tile's list front to back and exit early.
+
+Around them, as in the JAX package: mega triangles (huge walls and floors,
+excluded from the clusters) are tested densely first and cap `t_max`
+(`_mega_hits`); spheres are merged densely as index T + s. The search is
+detached: gradients come from the attribute recompute in
+`geometry.intersect.hit_attributes_soa`.
+
+Each kernel has a plain PyTorch version in this module (`closest_reference`,
+`anyhit_reference`): a dense test of every ray against every triangle of the
+clusters listed for its tile, in the kernel's arithmetic and tie-break. The
+wrappers (`closest_hit`, `any_hit`) launch the kernel for CUDA tensors and
+run the plain version for CPU tensors. The walk's early exit never changes
+the result, so the plain version has none.
+
+Scenes with more than 128 clusters need the two-level (supercluster) path,
+which is not ported yet (ROADMAP, "TPU kernels to port", items D and E).
+"""
+from __future__ import annotations
+
+import torch
+
+from mafrixraytracing_torch.accel.clusters import CLUSTER_SIZE
+from mafrixraytracing_torch.core.v3 import V3
+from mafrixraytracing_torch.geometry.intersect import closest_sphere_soa
+from mafrixraytracing_torch.ops import cuda
+
+# 128-ray tiles: the kernels' block, and the unit whose rays share one
+# cluster list. The integrator's ray order (tiled_pixel_order, _spp_group)
+# is tied to the same constant.
+TILE = 128
+COMP = 12           # packed components per triangle (pack_tris)
+MAX_FLAT_C = 128    # clusters the flat single-level path handles
+BIG = 1e30
+DET_EPS = 1e-10
+_INT_MAX = 2**31 - 1
+_REF_PAIRS = 1 << 22  # ray-triangle pairs per chunk of the plain versions
+
+
+def pack_tris(scene) -> torch.Tensor:
+    """(C, 12, 128) packed triangle records: [c, k, j] is component k of
+    triangle c * 128 + j, in the plane + barycentric form
+      n = e1 x e2, dp = n.v0            (plane: n.p = dp)
+      g1 = (e2 x n)/(n.n), c1 = g1.v0   (u(p) = g1.p - c1)
+      g2 = (n x e1)/(n.n), c2 = g2.v0   (v(p) = g2.p - c2)
+    Mega triangles are zeroed (det == 0, never hit): `_mega_hits` owns them."""
+    T = scene.tri_v0.shape[0]
+    C = T // CLUSTER_SIZE
+    v0, e1, e2 = scene.tri_v0, scene.tri_e1, scene.tri_e2
+    n = torch.linalg.cross(e1, e2)
+    nn = torch.clamp(torch.sum(n * n, dim=1, keepdim=True), min=1e-30)
+    g1 = torch.linalg.cross(e2, n) / nn
+    g2 = torch.linalg.cross(n, e1) / nn
+    comp = torch.cat(
+        [n, torch.sum(n * v0, dim=1, keepdim=True),
+         g1, torch.sum(g1 * v0, dim=1, keepdim=True),
+         g2, torch.sum(g2 * v0, dim=1, keepdim=True)], dim=1)  # (T, 12)
+    if scene.num_mega:
+        comp = comp.index_fill(0, scene.mega_ids[:scene.num_mega].long(), 0.0)
+    return comp.reshape(C, CLUSTER_SIZE, COMP).permute(0, 2, 1).contiguous()
+
+
+def _cull(o: V3, d: V3, t_max, cmin, cmax):
+    """Per-tile ordered cluster lists (B a multiple of TILE). Returns
+      lists   (tiles, C) int64 cluster ids, front to back, survivors first
+      counts  (tiles,)   int64 number of survivors
+      entries (tiles, C) f32 tile-min entry distance per sorted slot
+      far     (B,)       f32 exit of the ray's last surviving cluster
+    Empty (padded) clusters have min > max; their +-3e38 slabs overflow to
+    +-inf and would pass the interval test, so a `live` mask drops them."""
+    B, C = o.x.shape[0], cmin.shape[0]
+    tn = torch.full((B, C), -BIG, dtype=torch.float32, device=o.x.device)
+    tf = torch.full((B, C), BIG, dtype=torch.float32, device=o.x.device)
+    for oa, da, a in ((o.x, d.x, 0), (o.y, d.y, 1), (o.z, d.z, 2)):
+        inv = 1.0 / torch.where(da.abs() > 1e-12, da,
+                                torch.where(da >= 0, 1e-12, -1e-12))
+        t0 = (cmin[None, :, a] - oa[:, None]) * inv[:, None]
+        t1 = (cmax[None, :, a] - oa[:, None]) * inv[:, None]
+        tn = torch.maximum(tn, torch.minimum(t0, t1))
+        tf = torch.minimum(tf, torch.maximum(t0, t1))
+    live = (cmin[:, 0] <= cmax[:, 0])[None, :]
+    hit = live & (tn <= tf) & (tf > 0.0) & (tn < t_max[:, None])
+    entry = torch.where(hit, torch.clamp(tn, min=0.0), BIG)
+    far = torch.where(hit, tf, -BIG).amax(dim=1)
+    far = torch.minimum(far, t_max)
+    tile_entry = entry.reshape(B // TILE, TILE, C).amin(dim=1)
+    # stable: equal entries keep ascending cluster id, as the bitonic
+    # network's (key, id) order does
+    entries, lists = torch.sort(tile_entry, dim=1, stable=True)
+    counts = (tile_entry < BIG).sum(dim=1)
+    return lists, counts, entries, far
+
+
+def _mega_hits(scene, o: V3, d: V3, t_min: float, t_max):
+    """Dense Moller-Trumbore over the live mega triangles -> (t, idx): the
+    nearest mega hit in (t_min, t_max) with its global triangle index, or
+    (BIG, -1)."""
+    B = o.x.shape[0]
+    n = scene.num_mega
+    dev = o.x.device
+    if n == 0:
+        return (torch.full((B,), BIG, dtype=torch.float32, device=dev),
+                torch.full((B,), -1, dtype=torch.int64, device=dev))
+    T = scene.tri_v0.shape[0]
+    ids = scene.mega_ids[:n].long()
+    live = ids >= 0
+    idc = ids.clamp(0, T - 1)
+    v0, e1, e2 = scene.tri_v0[idc], scene.tri_e1[idc], scene.tri_e2[idc]
+    ox, oy, oz = o.x[:, None], o.y[:, None], o.z[:, None]
+    dx, dy, dz = d.x[:, None], d.y[:, None], d.z[:, None]
+    e1x, e1y, e1z = e1[None, :, 0], e1[None, :, 1], e1[None, :, 2]
+    e2x, e2y, e2z = e2[None, :, 0], e2[None, :, 1], e2[None, :, 2]
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    ok = det.abs() > DET_EPS
+    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
+    tx = ox - v0[None, :, 0]
+    ty = oy - v0[None, :, 1]
+    tz = oz - v0[None, :, 2]
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    ok = (live[None] & ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+          & (t > t_min) & (t < t_max[:, None]))
+    t = torch.where(ok, t, BIG)
+    best = t.amin(dim=1)
+    idx = torch.where(t <= best[:, None], idc[None, :], _INT_MAX).amin(dim=1)
+    return best, torch.where(best < BIG, idx, -1)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of kernels A and B
+# ---------------------------------------------------------------------------
+
+
+def _plane_terms(r, comp):
+    """The kernel's ray-triangle test, broadcast: r = 6 ray columns (n, 1),
+    comp = 12 component rows (1, T). Returns (t, valid) as (n, T)."""
+    ox, oy, oz, dx, dy, dz = r
+    nx, ny, nz, dp, g1x, g1y, g1z, c1, g2x, g2y, g2z, c2 = comp
+    det = dx * nx + dy * ny + dz * nz
+    ok = det.abs() > DET_EPS
+    t = (dp - (ox * nx + oy * ny + oz * nz)) / torch.where(ok, det, 1.0)
+    px = ox + t * dx
+    py = oy + t * dy
+    pz = oz + t * dz
+    u = g1x * px + g1y * py + g1z * pz - c1
+    v = g2x * px + g2y * py + g2z * pz - c2
+    return t, ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+
+
+def _listed_chunks(tri, lists, counts, rays):
+    """Yield (start, end, ray columns, per-ray mask of listed triangles,
+    t, geometric validity) over chunks of rays, for the plain versions."""
+    C = tri.shape[0]
+    T = C * CLUSTER_SIZE
+    B = rays.shape[1]
+    comp = tri.permute(1, 0, 2).reshape(COMP, 1, T).unbind(0)
+    slot = torch.arange(C, device=tri.device)[None, :] < counts[:, None]
+    member = torch.zeros((lists.shape[0], C + 1), dtype=torch.bool,
+                         device=tri.device)
+    member.scatter_(1, torch.where(slot, lists.long(), C), True)
+    member = member[:, :C]
+    step = max(TILE, (_REF_PAIRS // T) // TILE * TILE)
+    for s in range(0, B, step):
+        e = min(B, s + step)
+        r = tuple(rays[k, s:e, None] for k in range(8))
+        tiles = torch.arange(s, e, device=tri.device) // TILE
+        listed = member[tiles].repeat_interleave(CLUSTER_SIZE, dim=1)
+        t, ok = _plane_terms(r[:6], comp)
+        yield s, e, r, listed, t, ok
+
+
+def closest_reference(tri, lists, counts, entries, rays, t_min: float):
+    """Plain version of kernel A: for each ray, the hit with the smallest t
+    in (t_min, tmax) over the triangles of its tile's listed clusters,
+    smallest index on ties. Returns (t (B,) f32 = tmax on a miss,
+    idx (B,) int32, -1 on a miss). `entries` only steers the kernel's early
+    exit and is unused here."""
+    B = rays.shape[1]
+    T = tri.shape[0] * CLUSTER_SIZE
+    t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
+    i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
+    ids = torch.arange(T, dtype=torch.int32, device=rays.device)[None, :]
+    for s, e, r, listed, t, ok in _listed_chunks(tri, lists, counts, rays):
+        tmax = r[6]
+        valid = ok & listed & (t > t_min) & (t < tmax)
+        tt = torch.where(valid, t, torch.inf)
+        best = tt.amin(dim=1)
+        bi = torch.where(valid & (tt == best[:, None]), ids, _INT_MAX).amin(dim=1)
+        hit = valid.any(dim=1)
+        t_out[s:e] = torch.where(hit, best, tmax[:, 0])
+        i_out[s:e] = torch.where(hit, bi, -1)
+    return t_out, i_out
+
+
+def anyhit_reference(tri, lists, counts, entries, rays, t_min: float):
+    """Plain version of kernel B: True where any triangle of the ray's
+    tile's listed clusters is hit in (t_min, tmax)."""
+    occ = torch.empty((rays.shape[1],), dtype=torch.bool, device=rays.device)
+    for s, e, r, listed, t, ok in _listed_chunks(tri, lists, counts, rays):
+        occ[s:e] = (ok & listed & (t > t_min) & (t < r[6])).any(dim=1)
+    return occ
+
+
+# ---------------------------------------------------------------------------
+# Kernels A and B
+# ---------------------------------------------------------------------------
+
+
+def _check_walk_args(tri, lists, counts, entries, rays):
+    C = tri.shape[0]
+    B = rays.shape[1]
+    if B % TILE:
+        raise ValueError(f"ray batch {B} is not a multiple of {TILE}")
+    if tri.data_ptr() % 16:
+        raise ValueError("tri must be 16-byte aligned")
+    cuda.require(tri, "tri", torch.float32, (C, COMP, CLUSTER_SIZE))
+    cuda.require(lists, "lists", torch.int32, (B // TILE, C))
+    cuda.require(counts, "counts", torch.int32, (B // TILE,))
+    cuda.require(entries, "entries", torch.float32, (B // TILE, C))
+    cuda.require(rays, "rays", torch.float32, (8, B))
+
+
+def closest_kernel(tri, lists, counts, entries, rays, t_min: float):
+    """Launch kernel A (csrc/intersect.cu). Same contract as
+    `closest_reference`; int32 lists/counts."""
+    _check_walk_args(tri, lists, counts, entries, rays)
+    B, C = rays.shape[1], tri.shape[0]
+    t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
+    i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
+    err = cuda.lib().mfx_closest(
+        tri.data_ptr(), lists.data_ptr(), counts.data_ptr(), entries.data_ptr(),
+        rays.data_ptr(), B, C, float(t_min), t_out.data_ptr(), i_out.data_ptr(),
+        cuda.stream_of(rays))
+    cuda.check(err, "closest")
+    cuda.LAUNCHES["closest"] += 1
+    return t_out, i_out
+
+
+def anyhit_kernel(tri, lists, counts, entries, rays, t_min: float):
+    """Launch kernel B (csrc/intersect.cu). Same contract as
+    `anyhit_reference`; int32 lists/counts."""
+    _check_walk_args(tri, lists, counts, entries, rays)
+    B, C = rays.shape[1], tri.shape[0]
+    occ = torch.empty((B,), dtype=torch.uint8, device=rays.device)
+    err = cuda.lib().mfx_anyhit(
+        tri.data_ptr(), lists.data_ptr(), counts.data_ptr(), entries.data_ptr(),
+        rays.data_ptr(), B, C, float(t_min), occ.data_ptr(),
+        cuda.stream_of(rays))
+    cuda.check(err, "anyhit")
+    cuda.LAUNCHES["anyhit"] += 1
+    return occ.bool()
+
+
+def closest_hit(tri, lists, counts, entries, rays, t_min: float):
+    """Kernel A for CUDA tensors, its plain version for CPU tensors."""
+    if rays.is_cuda:
+        return closest_kernel(tri, lists, counts, entries, rays, t_min)
+    return closest_reference(tri, lists, counts, entries, rays, t_min)
+
+
+def any_hit(tri, lists, counts, entries, rays, t_min: float):
+    """Kernel B for CUDA tensors, its plain version for CPU tensors."""
+    if rays.is_cuda:
+        return anyhit_kernel(tri, lists, counts, entries, rays, t_min)
+    return anyhit_reference(tri, lists, counts, entries, rays, t_min)
+
+
+# ---------------------------------------------------------------------------
+# Queries
+# ---------------------------------------------------------------------------
+
+
+def _prep(scene, o: V3, d: V3, t_min: float, t_max, anyhit: bool):
+    """Detach, pad to a TILE multiple (dead padding rays), run the dense
+    mega test (capping t_max so the cull prunes everything behind the first
+    mega hit), cull and pack. Returns the walk's operands plus what the
+    caller merges."""
+    C = scene.cluster_min.shape[0]
+    if C > MAX_FLAT_C:
+        raise NotImplementedError(
+            f"{C} clusters: scenes with more than {MAX_FLAT_C} clusters need "
+            "the two-level (supercluster) kernels, not ported yet (ROADMAP, "
+            "'TPU kernels to port', items D and E)")
+    o = o.map(torch.Tensor.detach)
+    d = d.map(torch.Tensor.detach)
+    B = o.x.shape[0]
+    dev = o.x.device
+    t_max_arr = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(B)
+    Bp = -(-B // TILE) * TILE
+    pad = Bp - B
+    if pad:
+        zpad = torch.zeros((pad,), dtype=torch.float32, device=dev)
+        o = o.map(lambda c: torch.cat([c, zpad]))
+        d = V3(torch.cat([d.x, zpad]), torch.cat([d.y, zpad]),
+               torch.cat([d.z, torch.ones_like(zpad)]))
+        t_max_p = torch.cat([t_max_arr, zpad])
+    else:
+        t_max_p = t_max_arr.contiguous()
+    mega_t, mega_idx = _mega_hits(scene, o, d, t_min, t_max_p)
+    if anyhit:
+        # a mega hit already occludes: zero t_max skips every cluster
+        t_max_k = torch.where(mega_idx >= 0, 0.0, t_max_p)
+    else:
+        t_max_k = torch.minimum(t_max_p, mega_t)
+    lists, counts, entries, far = _cull(o, d, t_max_k, scene.cluster_min,
+                                        scene.cluster_max)
+    rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z, t_max_k, far])
+    walk = (pack_tris(scene), lists.to(torch.int32), counts.to(torch.int32),
+            entries.contiguous(), rays)
+    return walk, B, t_max_arr, mega_t[:B], mega_idx[:B]
+
+
+@torch.no_grad()
+def find_closest_soa(scene, o: V3, d: V3, t_min: float, t_max):
+    """Closest hit per ray: clustered triangles through kernel A, mega
+    triangles and spheres merged densely. Returns (t (B,) f32, BIG on a
+    miss; idx (B,) int64: triangle [0, T), sphere T + s, -1 on a miss).
+    Not differentiable by design."""
+    walk, B, t_max_arr, mega_t, mega_idx = _prep(scene, o, d, t_min, t_max,
+                                                 anyhit=False)
+    tt, ti = closest_hit(*walk, t_min)
+    tt, ti = tt[:B], ti[:B].long()
+    tt = torch.where(ti >= 0, tt, BIG)
+    # the walk's t_max was capped at mega_t, so a clustered hit is closer
+    use_mega = (mega_idx >= 0) & (mega_t < tt)
+    tt = torch.where(use_mega, mega_t, tt)
+    ti = torch.where(use_mega, mega_idx, ti)
+    if scene.num_live_spheres > 0:
+        st, si = closest_sphere_soa(scene, o.map(torch.Tensor.detach),
+                                    d.map(torch.Tensor.detach), t_min, t_max_arr)
+        use_sphere = st < tt
+        tt = torch.where(use_sphere, st, tt)
+        ti = torch.where(use_sphere, scene.tri_v0.shape[0] + si, ti)
+    return tt, torch.where(tt < BIG, ti, -1)
+
+
+@torch.no_grad()
+def occluded_soa(scene, o: V3, d: V3, t_min: float, t_max):
+    """Any hit in (t_min, t_max) per ray (shadow queries): clustered
+    triangles through kernel B, mega triangles and spheres densely."""
+    walk, B, t_max_arr, mega_t, mega_idx = _prep(scene, o, d, t_min, t_max,
+                                                 anyhit=True)
+    occ = any_hit(*walk, t_min)[:B] | (mega_idx >= 0)
+    if scene.num_live_spheres > 0:
+        st, _ = closest_sphere_soa(scene, o.map(torch.Tensor.detach),
+                                   d.map(torch.Tensor.detach), t_min, t_max_arr)
+        occ = occ | (st < BIG)
+    return occ
