@@ -4,8 +4,10 @@ hand-written CUDA kernels for NVIDIA Hopper (H100).
 A port of `mafrixraytracing_tpu` (JAX, the reference it is tested against).
 It imports no JAX: scenes compile to flat SoA tensors (`TorchScene`), the
 integrator is a wavefront bounce loop with next-event estimation, and the
-ray searches run hand-written CUDA kernels (`csrc/`) on a CUDA device and
-their plain PyTorch versions on the CPU. Gradients flow through autograd.
+ray searches run hand-written CUDA kernels (`csrc/`). Tensors are made on
+the CUDA card unless the caller passes `device="cpu"`; CPU tensors go
+through the kernels' plain PyTorch versions. Gradients flow through
+autograd.
 """
 
 __version__ = "0.1.0"

@@ -27,7 +27,8 @@ CLUSTER_SIZE = 128
 # so parent AABBs stay tight). Large scenes cull rays against the (B, S)
 # supercluster slabs instead of the (B, C) cluster slabs — a 16x smaller
 # dense pass — and the kernel refines each surviving supercluster against
-# its 16 child cluster AABBs (not yet ported: see ROADMAP).
+# its 16 child cluster AABBs (`ops.intersect.pack_bounds`, kernels D and E
+# in `csrc/intersect_super.cu`).
 SUPER = 16
 
 # "Mega" triangles (ground planes, room walls): any triangle whose AABB

@@ -11,10 +11,11 @@ final compaction schedule, then scaled by spp; the timed run renders and
 takes the gradient of the mean image with respect to material albedo, light
 radiance and triangle vertices.
 
-Scenes: Cornell (the OBJ loader is not ported, so mesh scenes such as spot
-wait). Env knobs: BENCH_WIDTH/HEIGHT (256), BENCH_SPP (64), BENCH_DEPTH (5),
+Scenes: Cornell by default; `run(spec=...)` times any `SceneSpec`, and
+BENCH_OBJ=<path> builds one around an OBJ file with `scene.assets.mesh_scene`.
+Env knobs: BENCH_WIDTH/HEIGHT (256), BENCH_SPP (64), BENCH_DEPTH (5),
 BENCH_ITERS (3), BENCH_WAVEFRONT (2^19), BENCH_COMPACT (1), BENCH_HEADROOM
-(1.12).
+(1.12), BENCH_OBJ (none).
 
 Run: python -m mafrixraytracing_torch.bench   (needs a CUDA device)
 """
@@ -95,13 +96,17 @@ def fwd_bwd(scene, camera, width, height, spp, seed, config):
     return img.detach(), [x.grad for x in leaves]
 
 
-def run(width=256, height=256, spp=64, depth=5, iters=3) -> tuple[dict, list]:
-    """Calibrate, count, warm up, then time `iters` fwd+bwd iterations.
-    Returns (the JSON record, the last iteration's gradients)."""
+def run(width=256, height=256, spp=64, depth=5, iters=3, spec=None,
+        scene_name=None) -> tuple[dict, list]:
+    """Calibrate, count, warm up, then time `iters` fwd+bwd iterations of
+    `spec` (a `SceneSpec` whose camera has the aspect width / height;
+    default: Cornell). Returns (the JSON record, the last iteration's
+    gradients)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the benchmark needs a CUDA device")
-    dev = torch.device("cuda", 0)
-    cs = compile_scene(cornell_box(width=width, height=height), device=dev)
+    if spec is None:
+        spec, scene_name = cornell_box(width=width, height=height), "cornell"
+    cs = compile_scene(spec)
     scene, camera = cs.scene, cs.camera
     config, survival = calibrated_config(scene, camera, width, height, depth)
     queries_per_spp = count_queries_per_sample(scene, camera, width, height,
@@ -122,7 +127,9 @@ def run(width=256, height=256, spp=64, depth=5, iters=3) -> tuple[dict, list]:
         "vs_baseline": None,
         "detail": {
             "package": "mafrixraytracing_torch",
-            "scene": "cornell",
+            "scene": scene_name or "custom",
+            "triangles": int(scene.tri_mask.sum()),
+            "clusters": scene.cluster_min.shape[0],
             "width": width,
             "height": height,
             "spp": spp,
@@ -139,16 +146,30 @@ def run(width=256, height=256, spp=64, depth=5, iters=3) -> tuple[dict, list]:
     return record, grads
 
 
+def spec_from_env(width, height):
+    """(SceneSpec, name) for BENCH_OBJ=<path>: `mesh_scene` around that OBJ
+    file; (None, None), which means Cornell, when the variable is unset."""
+    obj = os.environ.get("BENCH_OBJ")
+    if not obj:
+        return None, None
+    from mafrixraytracing_torch.scene.assets import mesh_scene
+
+    return mesh_scene(obj, width, height), os.path.basename(obj)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("bench: no CUDA device", file=sys.stderr)
         return 1
+    width = int(os.environ.get("BENCH_WIDTH", 256))
+    height = int(os.environ.get("BENCH_HEIGHT", 256))
+    spec, name = spec_from_env(width, height)
     record, _ = run(
-        width=int(os.environ.get("BENCH_WIDTH", 256)),
-        height=int(os.environ.get("BENCH_HEIGHT", 256)),
+        width=width, height=height,
         spp=int(os.environ.get("BENCH_SPP", 64)),
         depth=int(os.environ.get("BENCH_DEPTH", 5)),
         iters=int(os.environ.get("BENCH_ITERS", 3)),
+        spec=spec, scene_name=name,
     )
     print(json.dumps(record))
     return 0

@@ -8,8 +8,9 @@ Port of `mafrixraytracing_tpu/camera/camera.py`:
 - `Camera.thin_lens` (reference `RayTraceCamera`,
   `RenderTest/Sample/RayTracing.fs:335-364`): aperture disk + focus distance.
 
-The camera's vectors are float32 tensors on the camera's device, built with
-the same float32 operations as the JAX camera.
+The camera's vectors are float32 tensors on the camera's device (the CUDA
+card unless the caller names another), built with the same float32
+operations as the JAX camera.
 """
 from __future__ import annotations
 
@@ -19,16 +20,20 @@ import math
 import torch
 
 from mafrixraytracing_torch.core import v3
+from mafrixraytracing_torch.core.device import resolve
 from mafrixraytracing_torch.core.sampling import uniform_disk
 from mafrixraytracing_torch.core.v3 import V3
 
 
 def _normalize(v: V3) -> V3:
-    """The JAX camera's normalize: 1/sqrt above eps^2 = 1e-16, else as is."""
+    """The JAX camera's normalize: 1/sqrt above eps^2 = 1e-16, else as is.
+    Written as `rsqrt`: that is what XLA makes of the JAX camera's
+    `1 / sqrt`, and on the CPU it gives the same bits where the cameras'
+    own vectors are equal (the float32 `tan` of the two libraries can differ
+    by an ulp, and then directions differ by up to 2 ulp)."""
     n2 = v3.dot(v, v)
     eps2 = 1e-8 * 1e-8
-    scale = torch.where(n2 > eps2, 1.0 / torch.sqrt(torch.clamp(n2, min=eps2)),
-                        1.0)
+    scale = torch.where(n2 > eps2, torch.rsqrt(torch.clamp(n2, min=eps2)), 1.0)
     return v * scale
 
 
@@ -51,7 +56,7 @@ class Camera:
     def pinhole(cls, position, direction, fov: float, aspect: float,
                 up=(0.0, 1.0, 0.0), fov_convention: str = "mafrix",
                 device=None) -> "Camera":
-        f32 = dict(dtype=torch.float32, device=device)
+        f32 = dict(dtype=torch.float32, device=resolve(device))
         pos = torch.as_tensor(position, **f32)
         fwd = _normalize3(torch.as_tensor(direction, **f32))
         upv = _normalize3(torch.as_tensor(up, **f32))
@@ -79,6 +84,7 @@ class Camera:
     def thin_lens(cls, position, look_at, fov: float, aspect: float,
                   aperture: float, focus_dist: float | None = None,
                   up=(0.0, 1.0, 0.0), device=None) -> "Camera":
+        device = resolve(device)
         f32 = dict(dtype=torch.float32, device=device)
         pos = torch.as_tensor(position, **f32)
         d = torch.as_tensor(look_at, **f32) - pos

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from mafrixraytracing_torch.core.device import resolve
+
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -40,9 +42,10 @@ def threefry2x32(k1, k2, x0, x1):
 
 
 def root_key(seed: int, device=None) -> torch.Tensor:
-    """`jax.random.key(seed)` as a (2,) int64 tensor: [seed >> 32, seed & mask]."""
+    """`jax.random.key(seed)` as a (2,) int64 tensor: [seed >> 32, seed & mask],
+    on `device` (None: the CUDA card)."""
     return torch.tensor([(seed >> 32) & _MASK, seed & _MASK], dtype=torch.int64,
-                        device=device)
+                        device=resolve(device))
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:

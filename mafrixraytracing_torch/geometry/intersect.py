@@ -26,6 +26,7 @@ from mafrixraytracing_torch.core import v3
 from mafrixraytracing_torch.core.math import safe_sqrt
 from mafrixraytracing_torch.core.types import HitS, ShadingS
 from mafrixraytracing_torch.core.v3 import V3
+from mafrixraytracing_torch.materials.texture import sample_atlas
 
 BIG = 1e30
 DET_EPS = 1e-10
@@ -163,12 +164,10 @@ def hit_attributes_soa(scene, o: V3, d: V3, prim_idx: torch.Tensor,
     primitives -> (HitS, ShadingS). One packed row fetch per ray
     (`ops.unpack.fetch_cols`), then Moller-Trumbore / the sphere quadratic on
     the fetched columns. `t_hint` (the detached search result) picks the
-    sphere root."""
+    sphere root. A textured material's albedo is modulated by its atlas page
+    at the hit's uv."""
     from mafrixraytracing_torch.ops.unpack import fetch_cols
 
-    if scene.has_textures:
-        raise NotImplementedError(
-            "textured materials are not ported yet (ROADMAP, modules to port)")
     T = scene.tri_v0.shape[0]
     P = T + scene.sph_center.shape[0]
     valid = prim_idx >= 0
@@ -239,7 +238,13 @@ def hit_attributes_soa(scene, o: V3, d: V3, prim_idx: torch.Tensor,
         light_pdf_sa = torch.where(is_sph & (sin2_max < 1.0), 1.0 / cone_solid, 0.0)
     else:
         light_pdf_sa = torch.zeros_like(t)
-    sh = ShadingS(albedo=vec(24), emission=vec(27), fuzz=col(30), ior=col(31),
+    albedo = vec(24)
+    if scene.has_textures:
+        # nearest, as the JAX package's hit_attributes_soa: one gather
+        tex_rgb = sample_atlas(scene.tex_atlas, col(33).to(torch.int64),
+                               torch.stack([uu, vv], dim=-1), mode="nearest")
+        albedo = albedo * V3.of(tex_rgb)
+    sh = ShadingS(albedo=albedo, emission=vec(27), fuzz=col(30), ior=col(31),
                   mtype=col(32).to(torch.int64), two_sided=col(34) > 0.5,
                   light_pdf_sa=light_pdf_sa)
     return hit, sh

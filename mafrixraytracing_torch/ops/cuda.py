@@ -1,11 +1,13 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The kernels live in `mafrixraytracing_torch/csrc/*.cu` behind a plain C
-interface. At first use they are compiled with `nvcc` for `sm_90a` into one
-shared library under `build/torch_kernels/` at the repository root, named by
-a hash of the sources (an edited source gets a fresh build), and loaded with
-`ctypes`. No fast math: the kernels keep IEEE division and separate
-multiply/add rounding, so they agree with their plain PyTorch versions.
+The kernels live in `mafrixraytracing_torch/csrc/*.cu` (shared device code
+in `*.cuh`) behind a plain C interface. At first use they are compiled with
+`nvcc` for `sm_90a`, one process per source and all started together, and
+linked into one shared library under `build/torch_kernels/` at the
+repository root, named by a hash of the sources (an edited source gets a
+fresh build), and loaded with `ctypes`. No fast math: the kernels keep IEEE
+division and separate multiply/add rounding, so they agree with their plain
+PyTorch versions.
 
 `LAUNCHES` counts, per kernel, how many times a wrapper launched it; a run
 resets it with `reset_launches()` and reads it afterwards to show that the
@@ -26,9 +28,10 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "--fmad=false"]
+              "-Xcompiler", "-fPIC", "--fmad=false"]
 
-LAUNCHES: dict[str, int] = {"closest": 0, "anyhit": 0, "unpack": 0}
+LAUNCHES: dict[str, int] = {"closest": 0, "anyhit": 0, "unpack": 0,
+                            "closest_super": 0, "anyhit_super": 0}
 
 _lib = None
 
@@ -54,7 +57,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -68,17 +71,28 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)
+    nvcc, sources = _nvcc(), _sources()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+             "-c", "-o", obj, str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(sources, objs)]
+        logs = [p.communicate()[1] for p in procs]
+        for src, p, log in zip(sources, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src.name} ({p.returncode}):\n{log}")
+            if verbose:
+                print(log, end="")
+        lib_tmp = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to link ({link.returncode}):\n{link.stderr}")
+        os.replace(lib_tmp, out)
     return out
 
 
@@ -91,7 +105,10 @@ def lib() -> ctypes.CDLL:
         handle.mfx_closest.argtypes = [P, P, P, P, P, I, I, F, P, P, P]
         handle.mfx_anyhit.argtypes = [P, P, P, P, P, I, I, F, P, P]
         handle.mfx_unpack.argtypes = [P, P, I, I, P, P]
-        for fn in (handle.mfx_closest, handle.mfx_anyhit, handle.mfx_unpack):
+        handle.mfx_closest_super.argtypes = [P, P, P, P, P, P, I, I, I, F, F, F, P, P, P]
+        handle.mfx_anyhit_super.argtypes = [P, P, P, P, P, P, I, I, I, F, F, F, P, P]
+        for fn in (handle.mfx_closest, handle.mfx_anyhit, handle.mfx_unpack,
+                   handle.mfx_closest_super, handle.mfx_anyhit_super):
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib

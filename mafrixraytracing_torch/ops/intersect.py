@@ -1,7 +1,7 @@
 """Closest-hit and any-hit search over 128-triangle clusters.
 
-Port of the flat, single-level path of
-`mafrixraytracing_tpu/ops/intersect_pallas.py`, in two phases:
+Port of the list paths of `mafrixraytracing_tpu/ops/intersect_pallas.py`
+(flat and two-level), in two phases:
 
 1. **Cull (PyTorch ops).** Slab-test every ray against every cluster AABB as
    one dense (B, C) computation, take the entry distance per 128-ray tile,
@@ -12,6 +12,13 @@ Port of the flat, single-level path of
    finds each ray's closest hit; kernel B (`anyhit_kernel`) answers shadow
    queries. Both walk a tile's list front to back and exit early.
 
+Scenes with more than `SUPER_MIN_C` clusters take the **two-level path**:
+the cull runs on the superclusters (16 consecutive clusters each, a 16x
+smaller dense pass), the lists hold supercluster ids, and kernels D
+(`closest_super_kernel`) and E (`anyhit_super_kernel`,
+`csrc/intersect_super.cu`) refine each listed supercluster against its 16
+child AABBs (`pack_bounds`) before they stage a child's triangles.
+
 Around them, as in the JAX package: mega triangles (huge walls and floors,
 excluded from the clusters) are tested densely first and cap `t_max`
 (`_mega_hits`); spheres are merged densely as index T + s. The search is
@@ -19,20 +26,21 @@ detached: gradients come from the attribute recompute in
 `geometry.intersect.hit_attributes_soa`.
 
 Each kernel has a plain PyTorch version in this module (`closest_reference`,
-`anyhit_reference`): a dense test of every ray against every triangle of the
-clusters listed for its tile, in the kernel's arithmetic and tie-break. The
-wrappers (`closest_hit`, `any_hit`) launch the kernel for CUDA tensors and
-run the plain version for CPU tensors. The walk's early exit never changes
-the result, so the plain version has none.
-
-Scenes with more than 128 clusters need the two-level (supercluster) path,
-which is not ported yet (ROADMAP, "TPU kernels to port", items D and E).
+`anyhit_reference`, `closest_super_reference`, `anyhit_super_reference`): a
+dense test of every ray against every triangle of the clusters (or of the
+children of the superclusters) listed for its tile, in the kernel's
+arithmetic and tie-break. The wrappers (`closest_hit`, `any_hit`,
+`closest_super_hit`, `any_super_hit`) launch the kernel for CUDA tensors and
+run the plain version for CPU tensors. The walk's early exit and the child
+refinement are culls that never change the result, so the plain versions
+have neither; `refine_children` states the refinement's arithmetic in plain
+PyTorch so that tests can show it keeps every child that holds a hit.
 """
 from __future__ import annotations
 
 import torch
 
-from mafrixraytracing_torch.accel.clusters import CLUSTER_SIZE
+from mafrixraytracing_torch.accel.clusters import CLUSTER_SIZE, SUPER
 from mafrixraytracing_torch.core.v3 import V3
 from mafrixraytracing_torch.geometry.intersect import closest_sphere_soa
 from mafrixraytracing_torch.ops import cuda
@@ -42,7 +50,16 @@ from mafrixraytracing_torch.ops import cuda
 # is tied to the same constant.
 TILE = 128
 COMP = 12           # packed components per triangle (pack_tris)
-MAX_FLAT_C = 128    # clusters the flat single-level path handles
+# Scenes with more clusters than this take the two-level path. A module
+# variable so that tests can force that path on small scenes.
+SUPER_MIN_C = 128
+BOUNDS_ROWS = 7     # rows per supercluster in pack_bounds: min xyz, max xyz, live
+# Kernels D and E widen the two comparisons of their child refinement by this
+# much (their launchers pass these two numbers; `refine_children` uses the
+# same), so that rounding at a flat or axis-aligned child (entry == exit ==
+# limit) cannot drop a child whose triangle the dense plain version finds.
+REFINE_REL = 4e-6
+REFINE_ABS = 1e-6
 BIG = 1e30
 DET_EPS = 1e-10
 _INT_MAX = 2**31 - 1
@@ -72,6 +89,30 @@ def pack_tris(scene) -> torch.Tensor:
     return comp.reshape(C, CLUSTER_SIZE, COMP).permute(0, 2, 1).contiguous()
 
 
+def pack_bounds(scene) -> torch.Tensor:
+    """(S, 7, 16) child-cluster AABBs for the two-level kernels: [s, :, j]
+    holds [min x, y, z, max x, y, z, live] of cluster s * 16 + j. Children
+    past the last cluster and empty clusters carry the +-3e38 sentinels and
+    live 0: the kernels never stage them."""
+    C = scene.cluster_min.shape[0]
+    S = scene.super_min.shape[0]
+    cmin, cmax = scene.cluster_min, scene.cluster_max
+    pad = S * SUPER - C
+    if pad:
+        cmin = torch.cat([cmin, cmin.new_full((pad, 3), 3e38)])
+        cmax = torch.cat([cmax, cmax.new_full((pad, 3), -3e38)])
+    live = (cmin[:, :1] <= cmax[:, :1]).to(torch.float32)
+    rows = torch.cat([cmin, cmax, live], dim=1)  # (S * 16, 7)
+    return rows.reshape(S, SUPER, BOUNDS_ROWS).permute(0, 2, 1).contiguous()
+
+
+def _safe_inverse(da):
+    """IEEE 1 / d with |d| floored at 1e-12 (the cull's and the child
+    refinement's reciprocal)."""
+    return 1.0 / torch.where(da.abs() > 1e-12, da,
+                             torch.where(da >= 0, 1e-12, -1e-12))
+
+
 def _cull(o: V3, d: V3, t_max, cmin, cmax):
     """Per-tile ordered cluster lists (B a multiple of TILE). Returns
       lists   (tiles, C) int64 cluster ids, front to back, survivors first
@@ -84,8 +125,7 @@ def _cull(o: V3, d: V3, t_max, cmin, cmax):
     tn = torch.full((B, C), -BIG, dtype=torch.float32, device=o.x.device)
     tf = torch.full((B, C), BIG, dtype=torch.float32, device=o.x.device)
     for oa, da, a in ((o.x, d.x, 0), (o.y, d.y, 1), (o.z, d.z, 2)):
-        inv = 1.0 / torch.where(da.abs() > 1e-12, da,
-                                torch.where(da >= 0, 1e-12, -1e-12))
+        inv = _safe_inverse(da)
         t0 = (cmin[None, :, a] - oa[:, None]) * inv[:, None]
         t1 = (cmax[None, :, a] - oa[:, None]) * inv[:, None]
         tn = torch.maximum(tn, torch.minimum(t0, t1))
@@ -146,7 +186,7 @@ def _mega_hits(scene, o: V3, d: V3, t_min: float, t_max):
 
 
 # ---------------------------------------------------------------------------
-# Plain versions of kernels A and B
+# Plain versions of kernels A, B, D and E
 # ---------------------------------------------------------------------------
 
 
@@ -166,18 +206,21 @@ def _plane_terms(r, comp):
     return t, ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
 
 
-def _listed_chunks(tri, lists, counts, rays):
+def _listed_chunks(tri, lists, counts, rays, group: int = 1):
     """Yield (start, end, ray columns, per-ray mask of listed triangles,
-    t, geometric validity) over chunks of rays, for the plain versions."""
+    t, geometric validity) over chunks of rays, for the plain versions. A
+    list entry e stands for the clusters e * group .. e * group + group - 1
+    (group = 1: clusters; group = SUPER: superclusters)."""
     C = tri.shape[0]
     T = C * CLUSTER_SIZE
     B = rays.shape[1]
+    N = lists.shape[1]
     comp = tri.permute(1, 0, 2).reshape(COMP, 1, T).unbind(0)
-    slot = torch.arange(C, device=tri.device)[None, :] < counts[:, None]
-    member = torch.zeros((lists.shape[0], C + 1), dtype=torch.bool,
+    slot = torch.arange(N, device=tri.device)[None, :] < counts[:, None]
+    member = torch.zeros((lists.shape[0], N + 1), dtype=torch.bool,
                          device=tri.device)
-    member.scatter_(1, torch.where(slot, lists.long(), C), True)
-    member = member[:, :C]
+    member.scatter_(1, torch.where(slot, lists.long(), N), True)
+    member = member[:, :N].repeat_interleave(group, dim=1)[:, :C]
     step = max(TILE, (_REF_PAIRS // T) // TILE * TILE)
     for s in range(0, B, step):
         e = min(B, s + step)
@@ -188,7 +231,8 @@ def _listed_chunks(tri, lists, counts, rays):
         yield s, e, r, listed, t, ok
 
 
-def closest_reference(tri, lists, counts, entries, rays, t_min: float):
+def closest_reference(tri, lists, counts, entries, rays, t_min: float,
+                      group: int = 1):
     """Plain version of kernel A: for each ray, the hit with the smallest t
     in (t_min, tmax) over the triangles of its tile's listed clusters,
     smallest index on ties. Returns (t (B,) f32 = tmax on a miss,
@@ -199,7 +243,8 @@ def closest_reference(tri, lists, counts, entries, rays, t_min: float):
     t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
     i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
     ids = torch.arange(T, dtype=torch.int32, device=rays.device)[None, :]
-    for s, e, r, listed, t, ok in _listed_chunks(tri, lists, counts, rays):
+    for s, e, r, listed, t, ok in _listed_chunks(tri, lists, counts, rays,
+                                                 group):
         tmax = r[6]
         valid = ok & listed & (t > t_min) & (t < tmax)
         tt = torch.where(valid, t, torch.inf)
@@ -211,17 +256,63 @@ def closest_reference(tri, lists, counts, entries, rays, t_min: float):
     return t_out, i_out
 
 
-def anyhit_reference(tri, lists, counts, entries, rays, t_min: float):
+def anyhit_reference(tri, lists, counts, entries, rays, t_min: float,
+                     group: int = 1):
     """Plain version of kernel B: True where any triangle of the ray's
     tile's listed clusters is hit in (t_min, tmax)."""
     occ = torch.empty((rays.shape[1],), dtype=torch.bool, device=rays.device)
-    for s, e, r, listed, t, ok in _listed_chunks(tri, lists, counts, rays):
+    for s, e, r, listed, t, ok in _listed_chunks(tri, lists, counts, rays,
+                                                 group):
         occ[s:e] = (ok & listed & (t > t_min) & (t < r[6])).any(dim=1)
     return occ
 
 
+def closest_super_reference(tri, bounds, lists, counts, entries, rays,
+                            t_min: float):
+    """Plain version of kernel D. The contract: the closest hit in
+    (t_min, tmax) over all triangles of all children of the superclusters
+    listed for the ray's tile, smallest index on ties (across clusters
+    too, as kernel A). Dense: the kernel's child refinement (`bounds`) and
+    early exit (`entries`) are culls and are not repeated here. Children
+    without triangles hold degenerate records that are never hit."""
+    return closest_reference(tri, lists, counts, entries, rays, t_min,
+                             group=SUPER)
+
+
+def anyhit_super_reference(tri, bounds, lists, counts, entries, rays,
+                           t_min: float):
+    """Plain version of kernel E: any hit in (t_min, tmax) over the children
+    of the ray's tile's listed superclusters."""
+    return anyhit_reference(tri, lists, counts, entries, rays, t_min,
+                            group=SUPER)
+
+
+def refine_children(bounds, rays, limit) -> torch.Tensor:
+    """The child refinement of kernels D and E in plain PyTorch: (B, S, 16)
+    bool, True where ray b can meet child j of supercluster s within
+    `limit` (B,). One slab test per child with the cull's IEEE reciprocal,
+    inclusive comparisons widened by REFINE_REL / REFINE_ABS. Used by tests
+    (it must keep every child that holds a hit) and to count the work a
+    walk needs; the render path does not call it."""
+    tn = tf = None
+    for a in range(3):
+        oa = rays[a][:, None, None]
+        inv = _safe_inverse(rays[3 + a])[:, None, None]
+        t0 = (bounds[None, :, a, :] - oa) * inv
+        t1 = (bounds[None, :, 3 + a, :] - oa) * inv
+        lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        tn = lo if tn is None else torch.maximum(tn, lo)
+        tf = hi if tf is None else torch.minimum(tf, hi)
+    tn = tn.clamp(min=-BIG)
+    tf = tf.clamp(max=BIG)
+    lim = limit[:, None, None]
+    return ((bounds[None, :, 6, :] > 0.5)
+            & (tn <= tf + (REFINE_REL * tf.abs() + REFINE_ABS)) & (tf > 0.0)
+            & (tn <= lim + (REFINE_REL * lim + REFINE_ABS)))
+
+
 # ---------------------------------------------------------------------------
-# Kernels A and B
+# Kernels A, B, D and E
 # ---------------------------------------------------------------------------
 
 
@@ -270,6 +361,56 @@ def anyhit_kernel(tri, lists, counts, entries, rays, t_min: float):
     return occ.bool()
 
 
+def _check_super_args(tri, bounds, lists, counts, entries, rays):
+    C, S = tri.shape[0], bounds.shape[0]
+    B = rays.shape[1]
+    if B % TILE:
+        raise ValueError(f"ray batch {B} is not a multiple of {TILE}")
+    if tri.data_ptr() % 16:
+        raise ValueError("tri must be 16-byte aligned")
+    if S * SUPER < C:
+        raise ValueError(f"{S} superclusters do not cover {C} clusters")
+    cuda.require(tri, "tri", torch.float32, (C, COMP, CLUSTER_SIZE))
+    cuda.require(bounds, "bounds", torch.float32, (S, BOUNDS_ROWS, SUPER))
+    cuda.require(lists, "lists", torch.int32, (B // TILE, S))
+    cuda.require(counts, "counts", torch.int32, (B // TILE,))
+    cuda.require(entries, "entries", torch.float32, (B // TILE, S))
+    cuda.require(rays, "rays", torch.float32, (8, B))
+
+
+def closest_super_kernel(tri, bounds, lists, counts, entries, rays,
+                         t_min: float):
+    """Launch kernel D (csrc/intersect_super.cu). Same contract as
+    `closest_super_reference`; int32 lists/counts of supercluster ids."""
+    _check_super_args(tri, bounds, lists, counts, entries, rays)
+    B, C, S = rays.shape[1], tri.shape[0], bounds.shape[0]
+    t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
+    i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
+    err = cuda.lib().mfx_closest_super(
+        tri.data_ptr(), bounds.data_ptr(), lists.data_ptr(), counts.data_ptr(),
+        entries.data_ptr(), rays.data_ptr(), B, C, S, float(t_min),
+        REFINE_REL, REFINE_ABS, t_out.data_ptr(), i_out.data_ptr(), cuda.stream_of(rays))
+    cuda.check(err, "closest_super")
+    cuda.LAUNCHES["closest_super"] += 1
+    return t_out, i_out
+
+
+def anyhit_super_kernel(tri, bounds, lists, counts, entries, rays,
+                        t_min: float):
+    """Launch kernel E (csrc/intersect_super.cu). Same contract as
+    `anyhit_super_reference`; int32 lists/counts of supercluster ids."""
+    _check_super_args(tri, bounds, lists, counts, entries, rays)
+    B, C, S = rays.shape[1], tri.shape[0], bounds.shape[0]
+    occ = torch.empty((B,), dtype=torch.uint8, device=rays.device)
+    err = cuda.lib().mfx_anyhit_super(
+        tri.data_ptr(), bounds.data_ptr(), lists.data_ptr(), counts.data_ptr(),
+        entries.data_ptr(), rays.data_ptr(), B, C, S, float(t_min),
+        REFINE_REL, REFINE_ABS, occ.data_ptr(), cuda.stream_of(rays))
+    cuda.check(err, "anyhit_super")
+    cuda.LAUNCHES["anyhit_super"] += 1
+    return occ.bool()
+
+
 def closest_hit(tri, lists, counts, entries, rays, t_min: float):
     """Kernel A for CUDA tensors, its plain version for CPU tensors."""
     if rays.is_cuda:
@@ -284,6 +425,24 @@ def any_hit(tri, lists, counts, entries, rays, t_min: float):
     return anyhit_reference(tri, lists, counts, entries, rays, t_min)
 
 
+def closest_super_hit(tri, bounds, lists, counts, entries, rays, t_min: float):
+    """Kernel D for CUDA tensors, its plain version for CPU tensors."""
+    if rays.is_cuda:
+        return closest_super_kernel(tri, bounds, lists, counts, entries, rays,
+                                    t_min)
+    return closest_super_reference(tri, bounds, lists, counts, entries, rays,
+                                   t_min)
+
+
+def any_super_hit(tri, bounds, lists, counts, entries, rays, t_min: float):
+    """Kernel E for CUDA tensors, its plain version for CPU tensors."""
+    if rays.is_cuda:
+        return anyhit_super_kernel(tri, bounds, lists, counts, entries, rays,
+                                   t_min)
+    return anyhit_super_reference(tri, bounds, lists, counts, entries, rays,
+                                  t_min)
+
+
 # ---------------------------------------------------------------------------
 # Queries
 # ---------------------------------------------------------------------------
@@ -293,13 +452,10 @@ def _prep(scene, o: V3, d: V3, t_min: float, t_max, anyhit: bool):
     """Detach, pad to a TILE multiple (dead padding rays), run the dense
     mega test (capping t_max so the cull prunes everything behind the first
     mega hit), cull and pack. Returns the walk's operands plus what the
-    caller merges."""
-    C = scene.cluster_min.shape[0]
-    if C > MAX_FLAT_C:
-        raise NotImplementedError(
-            f"{C} clusters: scenes with more than {MAX_FLAT_C} clusters need "
-            "the two-level (supercluster) kernels, not ported yet (ROADMAP, "
-            "'TPU kernels to port', items D and E)")
+    caller merges. With more than SUPER_MIN_C clusters the cull runs on the
+    superclusters and the walk's operands are those of kernels D and E
+    (`pack_bounds` second); else those of kernels A and B."""
+    use_super = scene.cluster_min.shape[0] > SUPER_MIN_C
     o = o.map(torch.Tensor.detach)
     d = d.map(torch.Tensor.detach)
     B = o.x.shape[0]
@@ -321,23 +477,34 @@ def _prep(scene, o: V3, d: V3, t_min: float, t_max, anyhit: bool):
         t_max_k = torch.where(mega_idx >= 0, 0.0, t_max_p)
     else:
         t_max_k = torch.minimum(t_max_p, mega_t)
-    lists, counts, entries, far = _cull(o, d, t_max_k, scene.cluster_min,
-                                        scene.cluster_max)
+    if use_super:
+        boxes = (scene.super_min, scene.super_max)
+        packed = (pack_tris(scene), pack_bounds(scene))
+    else:
+        boxes = (scene.cluster_min, scene.cluster_max)
+        packed = (pack_tris(scene),)
+    lists, counts, entries, far = _cull(o, d, t_max_k, *boxes)
     rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z, t_max_k, far])
-    walk = (pack_tris(scene), lists.to(torch.int32), counts.to(torch.int32),
+    walk = (*packed, lists.to(torch.int32), counts.to(torch.int32),
             entries.contiguous(), rays)
     return walk, B, t_max_arr, mega_t[:B], mega_idx[:B]
 
 
+def _is_super(walk) -> bool:
+    """Whether `_prep` made the two-level walk's operands."""
+    return len(walk) == 6
+
+
 @torch.no_grad()
 def find_closest_soa(scene, o: V3, d: V3, t_min: float, t_max):
-    """Closest hit per ray: clustered triangles through kernel A, mega
-    triangles and spheres merged densely. Returns (t (B,) f32, BIG on a
-    miss; idx (B,) int64: triangle [0, T), sphere T + s, -1 on a miss).
-    Not differentiable by design."""
+    """Closest hit per ray: clustered triangles through kernel A (kernel D
+    on the two-level path), mega triangles and spheres merged densely.
+    Returns (t (B,) f32, BIG on a miss; idx (B,) int64: triangle [0, T),
+    sphere T + s, -1 on a miss). Not differentiable by design."""
     walk, B, t_max_arr, mega_t, mega_idx = _prep(scene, o, d, t_min, t_max,
                                                  anyhit=False)
-    tt, ti = closest_hit(*walk, t_min)
+    search = closest_super_hit if _is_super(walk) else closest_hit
+    tt, ti = search(*walk, t_min)
     tt, ti = tt[:B], ti[:B].long()
     tt = torch.where(ti >= 0, tt, BIG)
     # the walk's t_max was capped at mega_t, so a clustered hit is closer
@@ -356,10 +523,12 @@ def find_closest_soa(scene, o: V3, d: V3, t_min: float, t_max):
 @torch.no_grad()
 def occluded_soa(scene, o: V3, d: V3, t_min: float, t_max):
     """Any hit in (t_min, t_max) per ray (shadow queries): clustered
-    triangles through kernel B, mega triangles and spheres densely."""
+    triangles through kernel B (kernel E on the two-level path), mega
+    triangles and spheres densely."""
     walk, B, t_max_arr, mega_t, mega_idx = _prep(scene, o, d, t_min, t_max,
                                                  anyhit=True)
-    occ = any_hit(*walk, t_min)[:B] | (mega_idx >= 0)
+    search = any_super_hit if _is_super(walk) else any_hit
+    occ = search(*walk, t_min)[:B] | (mega_idx >= 0)
     if scene.num_live_spheres > 0:
         st, _ = closest_sphere_soa(scene, o.map(torch.Tensor.detach),
                                    d.map(torch.Tensor.detach), t_min, t_max_arr)

@@ -2,12 +2,13 @@
 
     python -m mafrixraytracing_torch.profile_bench [TRACE_DIR]
 
-Calibrates and warms up the Cornell 256x256 x 64 spp, depth 5 cell (the
-benchmark's), then profiles one forward frame (no grad) and one forward +
-backward. For each it prints the wall time, the device-busy time (the sum
-of kernel durations on the card), the idle share, the number of kernel
-launches, and the kernels with the most device time. With TRACE_DIR, it
-also writes Chrome traces there.
+Calibrates and warms up the benchmark's 256x256 x 64 spp, depth 5 cell
+(Cornell, or with BENCH_OBJ=<path> the `mesh_scene` around that OBJ file;
+`profile_scene(spec)` takes any `SceneSpec`), then profiles one forward
+frame (no grad) and one forward + backward. For each it prints the wall
+time, the device-busy time (the sum of kernel durations on the card), the
+idle share, the number of kernel launches, and the kernels with the most
+device time. With TRACE_DIR, it also writes Chrome traces there.
 """
 from __future__ import annotations
 
@@ -52,14 +53,11 @@ def _report(label: str, prof, wall_s: float, top: int = 15) -> None:
               f"{n:7d}x  {name[:90]}")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("profile_bench: no CUDA device", file=sys.stderr)
-        return 1
-    trace_dir = sys.argv[1] if len(sys.argv) > 1 else None
-    dev = torch.device("cuda", 0)
-    print(bench.device_info()["nvidia_smi"])
-    cs = compile_scene(cornell_box(W, H), device=dev)
+def profile_scene(spec=None, trace_dir=None) -> None:
+    """Profile one forward frame and one forward + backward of `spec`
+    (default: Cornell) at the benchmark's configuration."""
+    cs = compile_scene(spec if spec is not None else cornell_box(W, H))
+    dev = cs.scene.tri_v0.device
     config, _ = bench.calibrated_config(cs.scene, cs.camera, W, H, DEPTH)
     bench.fwd_bwd(cs.scene, cs.camera, W, H, SPP, 0, config)  # warm-up
     torch.cuda.synchronize()
@@ -82,6 +80,15 @@ def main() -> int:
         if trace_dir:
             os.makedirs(trace_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(trace_dir, f"{label}.json"))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_bench: no CUDA device", file=sys.stderr)
+        return 1
+    print(bench.device_info()["nvidia_smi"])
+    spec, _ = bench.spec_from_env(W, H)
+    profile_scene(spec, sys.argv[1] if len(sys.argv) > 1 else None)
     return 0
 
 

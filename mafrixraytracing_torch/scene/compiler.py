@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from mafrixraytracing_torch.core.device import resolve
 from mafrixraytracing_torch.scene import spec as S
 from mafrixraytracing_torch.utils.padding import bucket_size, pad_to
 
@@ -109,7 +110,9 @@ class CompiledScene:
 
 def from_jax_arrays(d: dict, flags: dict, device=None) -> TorchScene:
     """A `TorchScene` from a JAX `ScenePytree` flattened to numpy arrays
-    (`d`: field name -> array) and its static fields (`flags`)."""
+    (`d`: field name -> array) and its static fields (`flags`), on `device`
+    (None: the CUDA card)."""
+    device = resolve(device)
     tensors = {k: torch.as_tensor(np.array(d[k])).to(device)
                for k in TENSOR_FIELDS}
     return TorchScene(**tensors, **{k: flags[k] for k in STATIC_FLAGS})
@@ -390,10 +393,11 @@ def compile_arrays(scene_spec: S.SceneSpec):
 
 
 def compile_scene(scene_spec: S.SceneSpec, device=None) -> CompiledScene:
-    """Flatten a `SceneSpec` into tensors on `device` (host build in numpy,
-    tensors made at the end)."""
+    """Flatten a `SceneSpec` into tensors on `device` (None: the CUDA card;
+    host build in numpy, tensors made at the end)."""
     from mafrixraytracing_torch.camera.camera import Camera
 
+    device = resolve(device)
     arrays, flags = compile_arrays(scene_spec)
     scene = from_jax_arrays(arrays, flags, device=device)
 

@@ -57,7 +57,8 @@ def scenes(name):
     """(JAX scene, the port's scene from the same arrays)."""
     js = jcompile(CASES[name][0]()).scene
     d = {k: np.asarray(getattr(js, k)) for k in TENSOR_FIELDS}
-    ts = from_jax_arrays(d, {k: getattr(js, k) for k in STATIC_FLAGS})
+    ts = from_jax_arrays(d, {k: getattr(js, k) for k in STATIC_FLAGS},
+                         device="cpu")
     return js, ts
 
 

@@ -62,8 +62,9 @@ SCENES = {
 def pair(jspec, tspec):
     jcs = jcompile(jspec)
     d = {k: np.asarray(getattr(jcs.scene, k)) for k in TENSOR_FIELDS}
-    ts = from_jax_arrays(d, {k: getattr(jcs.scene, k) for k in STATIC_FLAGS})
-    return jcs, ts, tcompile(tspec).camera
+    ts = from_jax_arrays(d, {k: getattr(jcs.scene, k) for k in STATIC_FLAGS},
+                         device="cpu")
+    return jcs, ts, tcompile(tspec, device="cpu").camera
 
 
 @pytest.mark.parametrize("name", list(SCENES))
@@ -77,7 +78,7 @@ def test_render_matches_jax(name):
     jimg = np.asarray(JP.render_image(jcs.scene, jcs.camera, 16, 16, 4,
                                       jax.random.key(2),
                                       JP.PathTracerConfig(max_depth=4)))
-    timg = TP.render_image(ts, tcam, 16, 16, 4, trng.root_key(2),
+    timg = TP.render_image(ts, tcam, 16, 16, 4, trng.root_key(2, "cpu"),
                            TP.PathTracerConfig(max_depth=4)).numpy()
     close = np.isclose(timg, jimg, rtol=1e-3, atol=1e-4).all(axis=-1)
     assert close.mean() >= 0.995, close.mean()
@@ -104,7 +105,7 @@ def test_gradients_through_compaction_match_jax():
               ts.tri_v0.clone().requires_grad_()]
     s = ts.replace(mat_albedo=leaves[0], light_radiance=leaves[1],
                    tri_v0=leaves[2])
-    TP.render_image(s, tcam, 64, 64, 1, trng.root_key(4),
+    TP.render_image(s, tcam, 64, 64, 1, trng.root_key(4, "cpu"),
                     TP.PathTracerConfig(max_depth=3, compact=compact)
                     ).mean().backward()
     for g_j, leaf in zip(jg, leaves):

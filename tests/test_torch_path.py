@@ -40,8 +40,9 @@ COMPACT = (1.0, 0.7, 0.3, 0.15, 0.05)
 def cornell(w, h):
     jcs = jcompile(jbuiltin.cornell_box(w, h))
     d = {k: np.asarray(getattr(jcs.scene, k)) for k in TENSOR_FIELDS}
-    ts = from_jax_arrays(d, {k: getattr(jcs.scene, k) for k in STATIC_FLAGS})
-    return jcs, ts, tcompile(tbuiltin.cornell_box(w, h)).camera
+    ts = from_jax_arrays(d, {k: getattr(jcs.scene, k) for k in STATIC_FLAGS},
+                         device="cpu")
+    return jcs, ts, tcompile(tbuiltin.cornell_box(w, h), device="cpu").camera
 
 
 @pytest.mark.parametrize("B", [100, 1000, 1024, 4096, 65536, 524288])
@@ -85,7 +86,7 @@ def test_trace_stats_counts_exact(size, compact):
         jcs.scene, jrays)
     o = V3.of(torch.as_tensor(np.asarray(jrays.origin)))
     d = V3.of(torch.as_tensor(np.asarray(jrays.direction)))
-    tq, tprof = TP.trace_stats(ts, o, d, trng.pixel_keys(trng.root_key(123), W * H),
+    tq, tprof = TP.trace_stats(ts, o, d, trng.pixel_keys(trng.root_key(123, "cpu"), W * H),
                                tcfg, return_profile=True)
     assert float(tq) == float(jq)
     np.testing.assert_array_equal(tprof.numpy(), np.asarray(jprof))
@@ -95,13 +96,60 @@ def test_trace_stats_counts_exact(size, compact):
         assert tprof[1] * W * H == buckets[1]  # a kill happened
 
 
+def own_camera_rays(name, W, H):
+    """Each package compiles the scene and makes its own camera rays."""
+    from mafrixraytracing_torch.scene.compiler import compile_scene
+
+    jcs = jcompile(getattr(jbuiltin, name)(W, H))
+    tcs = compile_scene(getattr(tbuiltin, name)(W, H), device="cpu")
+    px, py = JP.make_pixel_uv(W, H)
+    jrays = jcs.camera.get_rays((px + 0.5) / W, (py + 0.5) / H)
+    tpx, tpy = TP.make_pixel_uv(W, H, "cpu")
+    o, d = tcs.camera.get_rays((tpx + 0.5) / W, (tpy + 0.5) / H)
+    return jcs, tcs, jrays, o, d
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "furnace", "sphere_triad"])
+def test_own_camera_directions_within_2ulp(name):
+    """A recorded rounding difference: the float32 `tan` of XLA and ATen
+    differ by an ulp for some fields of view, so the cameras' plane vectors,
+    and then the unit directions, differ by up to 2 ulp of 1. Where the
+    cameras' vectors are equal (furnace) the directions are bit-equal."""
+    jcs, tcs, jrays, o, d = own_camera_rays(name, 64, 64)
+    np.testing.assert_array_equal(o.arr().numpy(), np.asarray(jrays.origin))
+    diff = np.abs(d.arr().numpy() - np.asarray(jrays.direction)).max()
+    assert diff <= 2 * np.finfo(np.float32).eps, diff
+    if name == "furnace":
+        assert diff == 0.0
+
+
+@pytest.mark.parametrize("name", ["furnace", "sphere_triad"])
+def test_trace_stats_own_cameras_exact(name):
+    """Own cameras, own rays: on a scene with no coplanar faces a 2-ulp
+    difference in direction flips no hit, so the query count and the
+    survival profile are equal."""
+    W = H = 32
+    jcs, tcs, jrays, o, d = own_camera_rays(name, W, H)
+    jcfg = JP.PathTracerConfig(max_depth=5, compact=COMPACT)
+    tcfg = TP.PathTracerConfig(max_depth=5, compact=COMPACT)
+    jkeys = jrng.pixel_keys(jax.random.key(123), W * H)
+    jq, jprof = jax.jit(lambda s, r: JP.trace_stats(s, r, jkeys, jcfg,
+                                                    return_profile=True))(
+        jcs.scene, jrays)
+    tq, tprof = TP.trace_stats(
+        tcs.scene, o, d, trng.pixel_keys(trng.root_key(123, "cpu"), W * H),
+        tcfg, return_profile=True)
+    assert float(tq) == float(jq)
+    np.testing.assert_array_equal(tprof.numpy(), np.asarray(jprof))
+
+
 def test_render_image_matches_jax():
     W = H = 32
     jcs, ts, tcam = cornell(W, H)
     jimg = np.asarray(JP.render_image(
         jcs.scene, jcs.camera, W, H, 2, jax.random.key(7),
         JP.PathTracerConfig(max_depth=5, compact=COMPACT)))
-    timg = TP.render_image(ts, tcam, W, H, 2, trng.root_key(7),
+    timg = TP.render_image(ts, tcam, W, H, 2, trng.root_key(7, "cpu"),
                            TP.PathTracerConfig(max_depth=5, compact=COMPACT))
     timg = timg.numpy()
     assert timg.shape == (H, W, 3) and np.isfinite(timg).all()
@@ -128,7 +176,7 @@ def test_gradients_match_jax():
               ts.tri_v0.clone().requires_grad_()]
     s = ts.replace(mat_albedo=leaves[0], light_radiance=leaves[1],
                    tri_v0=leaves[2])
-    TP.render_image(s, tcam, W, H, 1, trng.root_key(3),
+    TP.render_image(s, tcam, W, H, 1, trng.root_key(3, "cpu"),
                     TP.PathTracerConfig(max_depth=5)).mean().backward()
     for g_j, leaf in zip(jg, leaves):
         g_j = np.asarray(g_j)
@@ -146,8 +194,9 @@ def test_runs_without_jax():
         "from mafrixraytracing_torch import bench\n"
         "from mafrixraytracing_torch.core import rng\n"
         "from mafrixraytracing_torch.scene.builtin import cornell_box\n"
-        "cs = mt.compile_scene(cornell_box(8, 8))\n"
-        "img = mt.render_image(cs.scene, cs.camera, 8, 8, 2, rng.root_key(1),\n"
+        "cs = mt.compile_scene(cornell_box(8, 8), device='cpu')\n"
+        "img = mt.render_image(cs.scene, cs.camera, 8, 8, 2,\n"
+        "    rng.root_key(1, 'cpu'),\n"
         "    mt.PathTracerConfig(compact=(1.0, 0.7, 0.3, 0.15, 0.05)))\n"
         "assert img.shape == (8, 8, 3) and bool(img.isfinite().all())\n"
         "assert float(img.mean()) > 0\n"
@@ -165,9 +214,9 @@ def test_forward_without_grad_leaves_no_graph():
     _, ts, tcam = cornell(8, 8)
     leaf = ts.mat_albedo.clone().requires_grad_()
     img = TP.render_image(ts.replace(mat_albedo=leaf), tcam, 8, 8, 1,
-                          trng.root_key(0), TP.PathTracerConfig())
+                          trng.root_key(0, "cpu"), TP.PathTracerConfig())
     assert img.requires_grad
     with torch.no_grad():
         img = TP.render_image(ts.replace(mat_albedo=leaf), tcam, 8, 8, 1,
-                              trng.root_key(0), TP.PathTracerConfig())
+                              trng.root_key(0, "cpu"), TP.PathTracerConfig())
     assert not img.requires_grad

@@ -22,16 +22,16 @@ def _kd(keys) -> np.ndarray:
 @pytest.mark.parametrize("seed", SEEDS)
 def test_root_and_pixel_keys(seed):
     np.testing.assert_array_equal(_kd(jax.random.key(seed)),
-                                  trng.root_key(seed).numpy())
+                                  trng.root_key(seed, "cpu").numpy())
     jk = jrng.pixel_keys(jax.random.key(seed), 257)
-    tk = trng.pixel_keys(trng.root_key(seed), 257)
+    tk = trng.pixel_keys(trng.root_key(seed, "cpu"), 257)
     np.testing.assert_array_equal(_kd(jk), tk.numpy())
 
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_sample_and_bounce_keys(seed):
     jk = jrng.pixel_keys(jax.random.key(seed), 64)
-    tk = trng.pixel_keys(trng.root_key(seed), 64)
+    tk = trng.pixel_keys(trng.root_key(seed, "cpu"), 64)
     for s in (0, 3, 63, 1000):
         np.testing.assert_array_equal(_kd(jrng.sample_key(jk, s)),
                                       trng.sample_key(tk, s).numpy())
@@ -44,7 +44,7 @@ def test_sample_and_bounce_keys(seed):
 @pytest.mark.parametrize("shape", [(), (2,), (3,)])
 def test_uniforms_bit_equal(seed, shape):
     jk = jrng.bounce_key(jrng.pixel_keys(jax.random.key(seed), 300), 2)
-    tk = trng.bounce_key(trng.pixel_keys(trng.root_key(seed), 300), 2)
+    tk = trng.bounce_key(trng.pixel_keys(trng.root_key(seed, "cpu"), 300), 2)
     for dim in (0, 10, 97, 1000):
         ju = np.asarray(jrng.uniforms(jk, dim, shape))
         tu = trng.uniforms(tk, dim, shape).numpy()
@@ -58,6 +58,6 @@ def test_batched_sample_keys_match_render_layout():
     sidx = jax.numpy.arange(4) + 8
     jsk = jax.vmap(lambda s: jrng.sample_key(jk, s))(sidx)
     jsk = jax.numpy.swapaxes(jsk, 0, 1).reshape(64)
-    tk = trng.pixel_keys(trng.root_key(9), 16)
+    tk = trng.pixel_keys(trng.root_key(9, "cpu"), 16)
     tsk = trng.sample_key(tk[:, None, :], (torch.arange(4) + 8)[None, :])
     np.testing.assert_array_equal(_kd(jsk), tsk.reshape(64, 2).numpy())

@@ -39,7 +39,7 @@ def jax_scene_arrays(scene):
 @pytest.mark.parametrize("name", SCENES)
 def test_compile_scene_fields_equal(name):
     js = jcompile(getattr(jbuiltin, name)()).scene
-    ts = tcompile(getattr(tbuiltin, name)()).scene
+    ts = tcompile(getattr(tbuiltin, name)(), device="cpu").scene
     for k in TENSOR_FIELDS:
         a = np.asarray(getattr(js, k))
         b = getattr(ts, k).numpy()
@@ -54,7 +54,7 @@ def test_compile_scene_fields_equal(name):
 def test_from_jax_arrays_round_trip(name):
     js = jcompile(getattr(jbuiltin, name)()).scene
     d, flags = jax_scene_arrays(js)
-    ts = from_jax_arrays(d, flags)
+    ts = from_jax_arrays(d, flags, device="cpu")
     for k in TENSOR_FIELDS:
         np.testing.assert_array_equal(getattr(ts, k).numpy(), d[k], err_msg=k)
     back = {k: getattr(ts, k).numpy() for k in TENSOR_FIELDS}
@@ -68,7 +68,7 @@ def test_from_jax_arrays_round_trip(name):
 @pytest.mark.parametrize("name", SCENES)
 def test_packed_attr_table_equal(name):
     js = jcompile(getattr(jbuiltin, name)()).scene
-    ts = tcompile(getattr(tbuiltin, name)()).scene
+    ts = tcompile(getattr(tbuiltin, name)(), device="cpu").scene
     np.testing.assert_array_equal(np.asarray(jisect.packed_attr_table(js)),
                                   packed_attr_table(ts).numpy())
 
@@ -96,22 +96,44 @@ def _compare_rays(jcam, tcam, lens):
 def test_pinhole_rays_match(convention, lens):
     args = ((0.0, 1.0, 3.0), (0.1, -0.2, -1.0), 75.0, 1.5)
     jcam = JCamera.pinhole(*args, fov_convention=convention)
-    tcam = TCamera.pinhole(*args, fov_convention=convention)
+    tcam = TCamera.pinhole(*args, fov_convention=convention, device="cpu")
     _compare_rays(jcam, tcam, lens)
 
 
 def test_thin_lens_rays_match():
     args = ((0.3, 0.7, 2.0), (0.0, 0.0, -1.0), 60.0, 2.0)
     jcam = JCamera.thin_lens(*args, aperture=0.2, focus_dist=2.5)
-    tcam = TCamera.thin_lens(*args, aperture=0.2, focus_dist=2.5)
+    tcam = TCamera.thin_lens(*args, aperture=0.2, focus_dist=2.5, device="cpu")
     _compare_rays(jcam, tcam, lens=True)
     jcam = JCamera.thin_lens(*args, aperture=0.1)
-    tcam = TCamera.thin_lens(*args, aperture=0.1)
+    tcam = TCamera.thin_lens(*args, aperture=0.1, device="cpu")
     _compare_rays(jcam, tcam, lens=True)
 
 
 def test_compiled_camera_matches():
     jcs = jcompile(jbuiltin.cornell_box(48, 32))
-    tcs = tcompile(tbuiltin.cornell_box(48, 32))
+    tcs = tcompile(tbuiltin.cornell_box(48, 32), device="cpu")
     _compare_rays(jcs.camera, tcs.camera, lens=True)
     assert (tcs.film_width, tcs.film_height) == (48, 32)
+
+
+def test_default_device_is_the_card():
+    """With no device argument the entry points build on the CUDA card; on
+    a machine without one they raise instead of giving CPU tensors."""
+    from mafrixraytracing_torch.core import rng as trng
+    from mafrixraytracing_torch.core.device import resolve
+
+    assert resolve("cpu") == torch.device("cpu")
+    calls = [lambda: tcompile(tbuiltin.cornell_box(8, 8)),
+             lambda: TCamera.pinhole((0, 1, 3), (0, 0, -1), 60.0, 1.0),
+             lambda: TCamera.thin_lens((0, 1, 3), (0, 0, 0), 60.0, 1.0, 0.1),
+             lambda: trng.root_key(0),
+             lambda: resolve(None)]
+    if torch.cuda.is_available():
+        assert resolve(None).type == "cuda"
+        assert trng.root_key(0).is_cuda
+        assert tcompile(tbuiltin.cornell_box(8, 8)).scene.tri_v0.is_cuda
+    else:
+        for call in calls:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
