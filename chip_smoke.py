@@ -19,7 +19,16 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    65,544 on a seeded mesh of 36,996 faces (512 clusters, 32 superclusters)
    that is written as an OBJ file to the temp directory and loaded through
    `scene.assets.mesh_scene`: primary and shadow rays at B = 524,288 and a
-   non-aligned batch with ~10% dead rays.
+   non-aligned batch with ~10% dead rays. The gather also as a pure unpack
+   (idx = arange(B) over a (B, 36) table, B a multiple of 1024: the contract
+   of the Pallas unpack kernels), bit-equal to the transpose. The scatter-add
+   (the backward of the gathers) against a float64 sum on the card, within
+   1e-5 * sum |terms| + 1e-6 per entry (float32 sums in another order), and
+   against its plain version, on the primary-hit rows of the mesh (P =
+   65,544) and of Cornell (P = 136) at B = 524,288, on one row for every
+   ray, on a sliced non-aligned B and a compacted size with ~10% dead lanes
+   of zero cotangent, and with 16 and 3 columns; two launches on the same
+   inputs must be bit-equal.
 3. Forward, Cornell: 256x256, 64 spp, depth 5, NEE + MIS + Russian roulette,
    compaction calibrated from `trace_stats` as the benchmark does. The image
    must be finite with a sane mean, the launch counts of closest, anyhit and
@@ -36,6 +45,21 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    mesh, finite and different from the untextured one.
 6. Forward + backward, mesh: the same as 4 on the mesh scene, with the peak
    device memory.
+7. Fit: `opt.inverse.fit` on the mesh scene at 256x256, 8 spp a step (one
+   wavefront of 2^19 rays), depth 5, the mesh at 8 times its size (see
+   FIT_SCALE), from a start with one albedo and the light radiance off and
+   the vertices displaced along y by a seeded smooth field; parameters albedo, light radiance and the shared vertex buffer,
+   vertex gradients smoothed. 6 steps uninterrupted, then 3 steps with a
+   checkpoint, everything dropped, and a restart for the other 3. Losses and
+   gradient norms finite, the mean of the last two losses below the first,
+   the launch counts of closest_super, anyhit_super, unpack and scatter > 0,
+   the refreshed cluster bounds contain every clustered triangle, the
+   resumed run's losses and final parameters bit-equal to the uninterrupted
+   run's, and one gradient evaluation repeated from the same state bit-equal.
+   Prints s/step, rays/s and the peak device memory, and the operations that
+   PyTorch's determinism check names during one gradient evaluation. Then a
+   short Cornell fit (albedo, 64x64, 4 steps) through closest, anyhit, unpack
+   and scatter.
 
 Then, on lines of their own: the kernels' JSON record, the nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA
@@ -52,7 +76,8 @@ child of a supercluster listed for its tile) whose box it enters no later
 than its final hit; a live any-hit ray that ends unoccluded needs every such
 cluster whose box it enters before tmax, and one that ends occluded needs one
 cluster; a dead ray needs none. "Enters" is the slab test of
-`ops.intersect.refine_children`.
+`ops.intersect.refine_children`. The gather and the scatter-add are bound by
+bytes: each input read once and each output written once.
 """
 from __future__ import annotations
 
@@ -69,6 +94,15 @@ WIDTH = HEIGHT = 256
 SPP = 64
 DEPTH = 5
 WAVEFRONT = 1 << 19         # rays per kernel call on the main path
+FIT_SPP = 8                 # samples a train step: one wavefront of 2^19 rays
+FIT_LR = 2e-2
+FIT_SCALE = 8.0             # Adam moves every coordinate by about lr a step,
+                            # whatever its gradient: the fit's mesh is sized
+                            # so that lr is small against an edge (0.37), as
+                            # a user picks lr for a scene's units. At radius
+                            # 1 a step is half an edge, and the noise-driven
+                            # walk of 18,768 vertices roughens the mesh
+                            # faster than the albedo fit gains.
 SMALL = 64                  # side of the kernels-vs-plain comparison renders
 MESH_FACES = 36996          # the face count of the reference's largest model
 
@@ -105,8 +139,8 @@ def time_ms(fn, reps: int = 10) -> float:
 
 @contextmanager
 def plain_versions():
-    """Route the five kernels' wrappers to their plain PyTorch versions
-    (for the comparison renders only)."""
+    """Route the forward kernels' wrappers to their plain PyTorch versions
+    (for the comparison renders only, which take no gradient)."""
     from mafrixraytracing_torch.ops import intersect as oi
     from mafrixraytracing_torch.ops import unpack as ou
 
@@ -236,10 +270,10 @@ def soup_scene(device):
     return compile_scene(spec, device=device).scene
 
 
-def write_mesh_obj(path):
+def write_mesh_obj(path, scale=1.0):
     """A seeded mesh of MESH_FACES = 36,996 faces as an OBJ file with uvs: a
     displaced UV sphere of 136 x 136 quads (36,992 triangles) and a small
-    tetrahedron on top (4)."""
+    tetrahedron on top (4), of radius `scale`."""
     import numpy as np
 
     rows = cols = 136
@@ -266,22 +300,24 @@ def write_mesh_obj(path):
     check(faces.shape[0] == MESH_FACES, "mesh face count")
     with open(path, "w") as f:
         f.write("# seeded displaced sphere, %d faces\ng mesh\n" % MESH_FACES)
-        f.writelines("v %.7f %.7f %.7f\n" % tuple(p) for p in v)
+        f.writelines("v %.7f %.7f %.7f\n" % tuple(p) for p in v * scale)
         f.writelines("vt %.7f %.7f\n" % tuple(t) for t in uv)
         f.writelines("f %d/%d %d/%d %d/%d\n" % (x, x, y, y, z, z) for x, y, z in faces)
 
 
-def mesh_spec(width, height, textured=False):
+def mesh_spec(width, height, textured=False, scale=1.0):
     """The mesh scene: the OBJ above, written to the temp directory and
-    loaded through the port's OBJ loader and `mesh_scene`."""
+    loaded through the port's OBJ loader and `mesh_scene`, which frames and
+    lights it by its size, so `scale` changes the units and not the picture."""
     from mafrixraytracing_torch.materials.texture import checker_texture
     from mafrixraytracing_torch.scene.assets import mesh_scene
 
-    path = os.path.join(tempfile.gettempdir(), "mafrix_torch_mesh36996.obj")
+    name = "mafrix_torch_mesh36996" + (f"_x{scale:g}" if scale != 1.0 else "")
+    path = os.path.join(tempfile.gettempdir(), name + ".obj")
     if not os.path.exists(path):
         # written under another name first: a file at `path` is complete
         part = f"{path}.{os.getpid()}.part"
-        write_mesh_obj(part)
+        write_mesh_obj(part, scale)
         os.replace(part, path)
     spec = mesh_scene(path, width, height)
     if textured:
@@ -301,6 +337,114 @@ def gather_bound(table, idx):
                 bound_by="bytes")
 
 
+def scatter_bound(cols, B, P):
+    """(K B + P K) 4 + 8 B bytes: the cotangents and the int64 indices read
+    once, the table written once. The sort's traffic is the design's cost,
+    not the function's."""
+    return dict(bound_ms=1e3 * ((cols * B + P * cols) * 4 + 8 * B) / HBM_BYTES_PER_S,
+                bound_by="bytes")
+
+
+def compare_scatter(torch, idx, P, cols, label, gen, dead=0.0, rows_layout=False):
+    """The scatter-add kernel on one input against a float64 sum on the card
+    and against its plain version; two launches must be bit-equal. Returns
+    (max |kernel - plain|, ct, kernel output)."""
+    from mafrixraytracing_torch.ops import unpack as ou
+
+    B = idx.shape[0]
+    ct = torch.randn((cols, B), generator=gen, device=idx.device)
+    if dead:
+        live = torch.rand(B, generator=gen, device=idx.device) >= dead
+        ct = ct * live
+    if rows_layout:     # the same values stored as (B, K) rows: a strided view
+        ct = ct.t().contiguous().t()
+    out = ou.scatter_kernel(ct, idx, P)
+    torch.cuda.synchronize()
+    again = ou.scatter_kernel(ct, idx, P)
+    plain = ou.scatter_rows_reference(ct, idx, P)
+    oracle = torch.zeros((P, cols), dtype=torch.float64, device=idx.device)
+    oracle.index_add_(0, idx, ct.t().double())
+    mass = torch.zeros_like(oracle).index_add_(0, idx, ct.t().double().abs())
+    tol = 1e-5 * mass + 1e-6
+    err_o = (out.double() - oracle).abs()
+    err_p = (plain.double() - oracle).abs()
+    diff = float((out - plain).abs().max())
+    print(f"  scatter {label}: B={B} P={P} K={cols} rows hit={int((mass[:, 0] > 0).sum())} "
+          f"max|kernel-f64|={float(err_o.max()):.3g} max|plain-f64|={float(err_p.max()):.3g} "
+          f"max|kernel-plain|={diff:.3g} bit-equal twice={bool(torch.equal(out, again))}")
+    check(bool((err_o <= tol).all()), f"scatter kernel is outside tolerance on {label}")
+    check(bool((err_p <= tol).all()), f"scatter plain version is outside tolerance on {label}")
+    check(torch.equal(out, again), f"scatter kernel is not reproducible on {label}")
+    return diff, ct, out
+
+
+def phase_scatter(torch, dev, records, mesh_idx, mesh_P, cornell_idx, cornell_P):
+    """Kernel J on the main path's index sets and on synthetic ones."""
+    from mafrixraytracing_torch.ops import unpack as ou
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    B = mesh_idx.shape[0]
+    errs = []
+    err, ct, _ = compare_scatter(torch, mesh_idx, mesh_P, 36, "mesh primary hits", gen)
+    errs.append(err)
+    ms = time_ms(lambda: ou.scatter_kernel(ct, mesh_idx, mesh_P))
+    ms_p = time_ms(lambda: ou.scatter_rows_reference(ct, mesh_idx, mesh_P))
+    ms_l = time_ms(lambda: torch.zeros((mesh_P, 36), device=dev)
+                   .index_add_(0, mesh_idx, ct.t()))
+    ms_sort = time_ms(lambda: torch.sort(mesh_idx.to(torch.int32), stable=True))
+    bound = scatter_bound(36, B, mesh_P)
+    err, ct_c, _ = compare_scatter(torch, cornell_idx, cornell_P, 36,
+                                   "cornell primary hits", gen)
+    errs.append(err)
+    ms_c = time_ms(lambda: ou.scatter_kernel(ct_c, cornell_idx, cornell_P))
+    ms_cl = time_ms(lambda: torch.zeros((cornell_P, 36), device=dev)
+                    .index_add_(0, cornell_idx, ct_c.t()))
+    one_row = torch.full((B,), 77, dtype=torch.int64, device=dev)
+    err, ct_1, _ = compare_scatter(torch, one_row, cornell_P, 36, "one row", gen)
+    errs.append(err)
+    ms_1 = time_ms(lambda: ou.scatter_kernel(ct_1, one_row, cornell_P))
+    # a non-aligned slice and a compacted size, ~10% dead lanes of zero cotangent
+    for n, label in ((500_001, "non-aligned slice"), (1024 * 137, "compacted size")):
+        errs.append(compare_scatter(torch, mesh_idx[:n].contiguous(), mesh_P, 36,
+                                    label, gen, dead=0.1)[0])
+    # the light rows (16 columns, 8 rows) and the vertex gather (3 columns)
+    light_idx = torch.randint(0, 8, (B,), generator=gen, device=dev)
+    errs.append(compare_scatter(torch, light_idx, 8, 16, "light rows", gen,
+                                rows_layout=True)[0])
+    vert_idx = torch.randint(0, 18_768, (3 * 65_536,), generator=gen, device=dev)
+    errs.append(compare_scatter(torch, vert_idx, 18_768, 3, "vertex gather", gen,
+                                rows_layout=True)[0])
+    records["scatter"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=ms_p,
+                              library_ms=ms_l, **bound)
+    print(f"  scatter: kernel {ms:.4f} ms (of it the sort alone {ms_sort:.4f} ms), "
+          f"plain {ms_p:.4f} ms, library {ms_l:.4f} ms, bound "
+          f"{bound['bound_ms']:.5f} ms by bytes (mesh, B = {B:,}, P = {mesh_P:,}); "
+          f"Cornell (P = {cornell_P}): kernel {ms_c:.4f} ms, library {ms_cl:.4f} ms, "
+          f"bound {scatter_bound(36, B, cornell_P)['bound_ms']:.5f} ms; one row: "
+          f"kernel {ms_1:.4f} ms")
+
+
+def compare_pure_unpack(torch, dev):
+    """The gather kernel at the contract of the Pallas unpack kernels: rows
+    (B, 36) -> 36 columns, B a multiple of 1024, no gather (idx = arange)."""
+    from mafrixraytracing_torch.ops import unpack as ou
+
+    B = 512 * 1024
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = torch.randn((B, 36), generator=gen, device=dev)
+    idx = torch.arange(B, device=dev)
+    out = ou.unpack_kernel(rows, idx)
+    torch.cuda.synchronize()
+    same = torch.equal(out, rows.t())
+    ms = time_ms(lambda: ou.unpack_kernel(rows, idx))
+    ms_l = time_ms(lambda: rows.t().contiguous())
+    bound = 1e3 * (2 * rows.numel() * 4 + 8 * B) / HBM_BYTES_PER_S
+    print(f"  unpack as a pure (B, 36) -> (36, B) unpack, B = {B:,}: bit-equal to "
+          f"the transpose={same}, kernel {ms:.4f} ms, library (rows.t().contiguous()) "
+          f"{ms_l:.4f} ms, bound {bound:.5f} ms by bytes")
+    check(same, "unpack kernel is not bit-equal to the transpose")
+
+
 def wavefront_uv(torch, dev, gen):
     """Film coordinates of one wavefront in the integrator's ray order: the
     pixels in tile order, each carrying G consecutive jittered samples, so a
@@ -317,7 +461,7 @@ def wavefront_uv(torch, dev, gen):
             (py + torch.rand(n, generator=gen, device=dev)) / HEIGHT)
 
 
-def phase_kernels_mesh(torch, dev, records):
+def phase_kernels_mesh(torch, dev, records, cornell_idx, cornell_P):
     """Kernels D and E (and the gather at a real table size) on the mesh."""
     import numpy as np
 
@@ -411,6 +555,9 @@ def phase_kernels_mesh(torch, dev, records):
         print(f"  {name} on incoherent tiles (B = {w[-1].shape[1]:,}): kernel "
               f"{ms:.4f} ms, bound {b['bound_ms']:.5f} ms by {b['bound_by']}, "
               f"{b['ray_cluster_pairs']} ray-cluster pairs needed")
+
+    compare_pure_unpack(torch, dev)
+    phase_scatter(torch, dev, records, gidx, table.shape[0], cornell_idx, cornell_P)
 
     records["closest_super"] = dict(max_abs_err=max(err_c, err_cn), ms=ms_c,
                                     plain_ms=ms_cp, library_ms=None, **bound_c)
@@ -528,7 +675,7 @@ def phase_kernels(torch, dev):
               f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, "
               f"{r['ray_cluster_pairs']} ray-cluster pairs needed (Cornell, "
               f"B = {B:,})")
-    return phase_kernels_mesh(torch, dev, records)
+    return phase_kernels_mesh(torch, dev, records, gidx, table.shape[0])
 
 
 def phase_forward(torch, dev, make_spec, label, launched, idle):
@@ -643,6 +790,171 @@ def phase_fwd_bwd(torch, spec=None, scene_name=None, iters=3):
     return record
 
 
+def bounds_contain_triangles(torch, scene) -> bool:
+    """Every live triangle that the clusters own lies inside its cluster's
+    box, and every cluster inside its supercluster's."""
+    from mafrixraytracing_torch.accel.clusters import SUPER
+
+    v0, p1, p2 = scene.tri_v0, scene.tri_v0 + scene.tri_e1, scene.tri_v0 + scene.tri_e2
+    T, C = v0.shape[0], scene.cluster_min.shape[0]
+    ids = scene.mega_ids.long()
+    own = scene.tri_mask.clone()
+    own[ids[ids >= 0]] = False
+    own = own.reshape(C, T // C, 1)
+    lo = torch.minimum(torch.minimum(v0, p1), p2).reshape(C, T // C, 3)
+    hi = torch.maximum(torch.maximum(v0, p1), p2).reshape(C, T // C, 3)
+    inside = ((lo >= scene.cluster_min[:, None]) & (hi <= scene.cluster_max[:, None])) | ~own
+    child = torch.arange(C, device=v0.device) // SUPER
+    live = (scene.cluster_min <= scene.cluster_max).all(dim=1, keepdim=True)
+    nested = ((scene.cluster_min >= scene.super_min[child])
+              & (scene.cluster_max <= scene.super_max[child])) | ~live
+    return bool(inside.all()) and bool(nested.all())
+
+
+def nondeterministic_ops(torch, fn):
+    """The operations PyTorch's determinism check names while fn() runs."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    names = sorted({str(w.message).split(" does not have")[0] for w in caught
+                    if "deterministic" in str(w.message)})
+    return names
+
+
+def phase_fit(torch, dev):
+    """This slice's path at full width: `opt.inverse.fit` on the mesh scene
+    (kernels C, D, E forward, J backward), with a restart from a checkpoint."""
+    import math
+    import shutil
+
+    from mafrixraytracing_torch import bench
+    from mafrixraytracing_torch.core import rng
+    from mafrixraytracing_torch.integrator import path as P
+    from mafrixraytracing_torch.ops import cuda
+    from mafrixraytracing_torch.opt import inverse
+    from mafrixraytracing_torch.scene.compiler import compile_scene
+
+    W, H, spp, steps = WIDTH, HEIGHT, FIT_SPP, 6
+    names = ("mat_albedo", "light_radiance", "mesh_vertices")
+    cs = compile_scene(mesh_spec(W, H, scale=FIT_SCALE))
+    scene, camera = cs.scene, cs.camera
+    check(scene.cluster_min.shape[0] == 512, "the fit's mesh must have 512 clusters")
+    config, _ = bench.calibrated_config(scene, camera, W, H, DEPTH)
+    queries = bench.count_queries_per_sample(scene, camera, W, H, config)
+    sc = FIT_SCALE
+    with torch.no_grad():
+        target = P.render_image(scene, camera, W, H, SPP, rng.root_key(0), config)
+        # the start: the ground's albedo and the light off, the vertices
+        # displaced along y by a smooth field with seeded phases
+        gen = torch.Generator(device=dev).manual_seed(17)
+        ph = torch.rand(2, generator=gen, device=dev) * (2.0 * math.pi)
+        mv = scene.mesh_vertices.clone()
+        mv[:, 1] += 0.03 * sc * (torch.sin(3.0 * mv[:, 0] / sc + ph[0])
+                                 * torch.cos(2.0 * mv[:, 2] / sc + ph[1]))
+        albedo = scene.mat_albedo.clone()
+        albedo[1] = torch.tensor([0.1, 0.1, 0.1], device=dev)
+        start = inverse.apply_params(scene, {
+            "mat_albedo": albedo, "light_radiance": scene.light_radiance * 0.9,
+            "mesh_vertices": mv})
+    check(bounds_contain_triangles(torch, start), "the start's bounds lose triangles")
+    common = dict(param_names=names, lr=FIT_LR, spp=spp, key=rng.root_key(3),
+                  config=config, smooth_geometry=4)
+
+    norms = []
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    ref, ref_losses = inverse.fit(start, camera, target, steps=steps,
+                                  log_every=1, **common)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  fit mesh36996 {W}x{H} x {spp} spp, {steps} steps (the first includes "
+          f"warm-up): losses {[round(l, 5) for l in ref_losses]}, launches {launches}")
+    check(all(math.isfinite(l) for l in ref_losses), "a loss is not finite")
+    check(sum(ref_losses[-2:]) / 2 < ref_losses[0], "the fit did not reduce the loss")
+    for k in ("closest_super", "anyhit_super", "unpack", "scatter"):
+        check(launches[k] > 0, f"kernel {k} was not launched by the fit")
+    for k in ("closest", "anyhit"):
+        check(launches[k] == 0, f"kernel {k} was launched by the mesh fit")
+    check(bounds_contain_triangles(torch, ref), "the fitted scene's bounds lose triangles")
+    moved = float((ref.mesh_vertices - start.mesh_vertices).abs().max())
+    check(moved > 0, "the fit did not move the vertices")
+
+    # 3 steps with a checkpoint, everything dropped, a restart for the other 3
+    ckdir = tempfile.mkdtemp(prefix="mafrix_torch_fit_")
+    try:
+        ck = os.path.join(ckdir, "fit_ck")
+        inverse.fit(start, camera, target, steps=steps // 2, checkpoint_path=ck,
+                    **common)
+        t1 = time.perf_counter()
+        res, res_losses = inverse.fit(
+            start, camera, target, steps=steps, checkpoint_path=ck,
+            callback=lambda i, loss, params: norms.append(float(torch.sqrt(
+                sum((p.detach() ** 2).sum() for p in params.values())))),
+            **common)
+        torch.cuda.synchronize()
+        s_step = (time.perf_counter() - t1) / len(res_losses)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    check(len(res_losses) == steps - steps // 2, "the restart did not resume")
+    same_l = res_losses == ref_losses[steps // 2:]
+    same_p = all(torch.equal(getattr(res, n), getattr(ref, n)) for n in names)
+    print(f"  restart after {steps // 2} steps: losses bit-equal={same_l}, final "
+          f"parameters bit-equal={same_p}")
+    check(same_l, f"resumed losses differ: {res_losses} vs {ref_losses[steps // 2:]}")
+    check(same_p, "resumed parameters differ from the uninterrupted run's")
+    check(all(math.isfinite(n) for n in norms), "a parameter norm is not finite")
+
+    # one gradient evaluation, repeated from the same state
+    params = {n: getattr(start, n).detach().clone().requires_grad_() for n in names}
+    evaluate = lambda: inverse.loss_and_grads(  # noqa: E731
+        params, start, camera, target, rng.root_key(9), spp, config)
+    (l1, g1), (l2, g2) = evaluate(), evaluate()
+    same_g = torch.equal(l1, l2) and all(torch.equal(g1[n], g2[n]) for n in names)
+    gnorm = float(torch.sqrt(sum((g * g).sum() for g in g1.values())))
+    print(f"  gradients repeated from the same state: bit-equal={same_g}, "
+          f"|grad| {gnorm:.4g}")
+    check(same_g, "two gradient evaluations from the same state differ")
+    check(math.isfinite(gnorm) and gnorm > 0, "the gradient norm is not finite")
+    print(f"  operations named by PyTorch's determinism check in one gradient "
+          f"evaluation: {nondeterministic_ops(torch, evaluate) or 'none'}")
+    print(f"  fit mesh36996: {s_step:.4f} s/step ({queries * spp / s_step / 1e6:.2f}M "
+          f"rays/s fwd+bwd+update, {queries:.0f} queries per spp), first {steps} "
+          f"steps {seconds:.2f} s, peak device memory {peak:.2f} GiB")
+
+    # the flat path trains too: Cornell, albedo only
+    from mafrixraytracing_torch.scene.builtin import cornell_box
+
+    small = compile_scene(cornell_box(SMALL, SMALL))
+    cfg = P.PathTracerConfig(max_depth=5, compact=(1.0, 0.7, 0.3, 0.15, 0.05))
+    with torch.no_grad():
+        tgt = P.render_image(small.scene, small.camera, SMALL, SMALL, 16,
+                             rng.root_key(0), cfg)
+    alb = small.scene.mat_albedo.clone()
+    alb[:3] = torch.tensor([0.5, 0.5, 0.5], device=dev)
+    cuda.reset_launches()
+    _, losses = inverse.fit(small.scene.replace(mat_albedo=alb), small.camera, tgt,
+                            ("mat_albedo",), steps=4, lr=5e-2, spp=4,
+                            key=rng.root_key(2), config=cfg)
+    flat = dict(cuda.LAUNCHES)
+    print(f"  fit cornell {SMALL}x{SMALL} x 4 spp, 4 steps: losses "
+          f"{[round(l, 5) for l in losses]}, launches {flat}")
+    check(all(math.isfinite(l) for l in losses) and losses[-1] < losses[0],
+          "the Cornell fit did not reduce the loss")
+    for k in ("closest", "anyhit", "unpack", "scatter"):
+        check(flat[k] > 0, f"kernel {k} was not launched by the Cornell fit")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -690,6 +1002,9 @@ def main() -> int:
     print("[6] forward + backward, mesh of 36,996 faces")
     phase_fwd_bwd(torch, mesh_spec(WIDTH, HEIGHT), "mesh36996", iters=2)
 
+    print("[7] fit, mesh of 36,996 faces (and a short Cornell fit)")
+    launches["scatter"] = phase_fit(torch, dev)["scatter"]
+
     pallas = "mafrixraytracing_tpu/ops/intersect_pallas.py"
     sources = {"closest": ("mafrixraytracing_torch/csrc/intersect.cu", pallas + ":356"),
                "anyhit": ("mafrixraytracing_torch/csrc/intersect.cu", pallas + ":450"),
@@ -698,7 +1013,9 @@ def main() -> int:
                "closest_super": ("mafrixraytracing_torch/csrc/intersect_super.cu",
                                  pallas + ":964"),
                "anyhit_super": ("mafrixraytracing_torch/csrc/intersect_super.cu",
-                                pallas + ":1028")}
+                                pallas + ":1028"),
+               "scatter": ("mafrixraytracing_torch/csrc/scatter.cu",
+                           "experiments/exp_scatter.py:52")}
     kernels = [dict(name=k, route="cuda", source=sources[k][0],
                     replaces=sources[k][1], launches=launches[k], **records[k])
                for k in sources]

@@ -12,11 +12,13 @@ axis (the same split rule as the reference's BVH build,
 `CLUSTER_SIZE` triangles, then lay leaves out consecutively. Each leaf is
 one *cluster* with a tight AABB; traversal tests a cluster's AABB, then its
 triangles. The device-side consumer is `ops.intersect` (cull + the
-closest-hit and any-hit kernels).
+closest-hit and any-hit kernels). `refresh_clusters` recomputes the boxes on
+the device after an optimization step has moved vertices.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # 128 triangles per cluster: the CUDA kernels stage one cluster (12 x 128
 # packed components, 6 KB) in shared memory and test it against a 128-ray tile.
@@ -177,3 +179,40 @@ def _super_bounds_np(cluster_min: np.ndarray, cluster_max: np.ndarray):
     smax = cluster_max.reshape(S, SUPER, 3).max(axis=1).astype(np.float32)
     return smin, smax
 
+
+def refresh_clusters(scene):
+    """Recompute cluster and supercluster AABBs on the device from the
+    scene's (possibly updated) triangle tensors, as the JAX package's
+    `refresh_clusters` (`accel/clusters.py:182-218`): required after a
+    vertex-position step so the cull stays conservative. O(T); the
+    median-split order stays fixed (a stale order loosens bounds, never
+    correctness). The inputs are detached: bounds carry no gradient."""
+    v0, e1, e2 = (scene.tri_v0.detach(), scene.tri_e1.detach(),
+                  scene.tri_e2.detach())
+    T = v0.shape[0]
+    # mega triangles are owned by the dense test, not the clusters; the -1
+    # pads are dropped (a negative index would wrap around)
+    ids = scene.mega_ids.long()
+    mega = torch.zeros((T,), dtype=torch.bool, device=v0.device)
+    mega[ids[ids >= 0]] = True
+    mask = (scene.tri_mask & ~mega)[:, None]
+    p1, p2 = v0 + e1, v0 + e2
+    tmin = torch.minimum(torch.minimum(v0, p1), p2)
+    tmax = torch.maximum(torch.maximum(v0, p1), p2)
+    tmin = torch.where(mask, tmin, float(_EMPTY_MIN))
+    tmax = torch.where(mask, tmax, float(_EMPTY_MAX))
+
+    C = scene.cluster_min.shape[0]
+    cmin = tmin.reshape(C, T // C, 3).amin(dim=1)
+    cmax = tmax.reshape(C, T // C, 3).amax(dim=1)
+    # supercluster bounds follow their children (padded to SUPER groups)
+    S = scene.super_min.shape[0]
+    pad = S * SUPER - C
+    pmin, pmax = cmin, cmax
+    if pad:
+        pmin = torch.cat([cmin, cmin.new_full((pad, 3), float(_EMPTY_MIN))])
+        pmax = torch.cat([cmax, cmax.new_full((pad, 3), float(_EMPTY_MAX))])
+    smin = pmin.reshape(S, SUPER, 3).amin(dim=1)
+    smax = pmax.reshape(S, SUPER, 3).amax(dim=1)
+    return scene.replace(cluster_min=cmin, cluster_max=cmax,
+                         super_min=smin, super_max=smax)

@@ -11,13 +11,20 @@ final compaction schedule, then scaled by spp; the timed run renders and
 takes the gradient of the mean image with respect to material albedo, light
 radiance and triangle vertices.
 
+With `--fit` (or BENCH_FIT=1) it times whole train steps of `opt.inverse`
+instead (render, loss, backward, gradient smoothing, Adam; 8 spp a step
+unless BENCH_SPP says otherwise) and prints the same JSON line with the
+metric `seconds_per_train_step`; `detail` keeps its keys and gains the
+parameters, the losses, `rays_per_s_fwd_bwd` by the same accounting and the
+seconds it took to construct the optimizer.
+
 Scenes: Cornell by default; `run(spec=...)` times any `SceneSpec`, and
 BENCH_OBJ=<path> builds one around an OBJ file with `scene.assets.mesh_scene`.
 Env knobs: BENCH_WIDTH/HEIGHT (256), BENCH_SPP (64), BENCH_DEPTH (5),
 BENCH_ITERS (3), BENCH_WAVEFRONT (2^19), BENCH_COMPACT (1), BENCH_HEADROOM
-(1.12), BENCH_OBJ (none).
+(1.12), BENCH_OBJ (none), BENCH_FIT (0).
 
-Run: python -m mafrixraytracing_torch.bench   (needs a CUDA device)
+Run: python -m mafrixraytracing_torch.bench [--fit]   (needs a CUDA device)
 """
 from __future__ import annotations
 
@@ -96,12 +103,12 @@ def fwd_bwd(scene, camera, width, height, spp, seed, config):
     return img.detach(), [x.grad for x in leaves]
 
 
-def run(width=256, height=256, spp=64, depth=5, iters=3, spec=None,
-        scene_name=None) -> tuple[dict, list]:
-    """Calibrate, count, warm up, then time `iters` fwd+bwd iterations of
-    `spec` (a `SceneSpec` whose camera has the aspect width / height;
-    default: Cornell). Returns (the JSON record, the last iteration's
-    gradients)."""
+FIT_PARAMS = ("mat_albedo", "light_radiance", "mesh_vertices")
+
+
+def _setup(width, height, depth, spec, scene_name):
+    """Compile, calibrate and count: (scene, camera, config, name, the
+    `detail` fields every record shares)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the benchmark needs a CUDA device")
     if spec is None:
@@ -111,6 +118,32 @@ def run(width=256, height=256, spp=64, depth=5, iters=3, spec=None,
     config, survival = calibrated_config(scene, camera, width, height, depth)
     queries_per_spp = count_queries_per_sample(scene, camera, width, height,
                                                config)
+    info = device_info()
+    detail = {
+        "package": "mafrixraytracing_torch",
+        "scene": scene_name or "custom",
+        "triangles": int(scene.tri_mask.sum()),
+        "clusters": scene.cluster_min.shape[0],
+        "width": width,
+        "height": height,
+        "depth": depth,
+        "queries_per_spp": queries_per_spp,
+        "backend": "cuda",
+        "device": info["name"],
+        "power_limit": info["power_limit"],
+        "compact": list(config.compact),
+        "survival": [round(s, 4) for s in survival],
+    }
+    return scene, camera, config, detail
+
+
+def run(width=256, height=256, spp=64, depth=5, iters=3, spec=None,
+        scene_name=None) -> tuple[dict, list]:
+    """Calibrate, count, warm up, then time `iters` fwd+bwd iterations of
+    `spec` (a `SceneSpec` whose camera has the aspect width / height;
+    default: Cornell). Returns (the JSON record, the last iteration's
+    gradients)."""
+    scene, camera, config, detail = _setup(width, height, depth, spec, scene_name)
     fwd_bwd(scene, camera, width, height, spp, 0, config)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -118,32 +151,58 @@ def run(width=256, height=256, spp=64, depth=5, iters=3, spec=None,
         _, grads = fwd_bwd(scene, camera, width, height, spp, i + 1, config)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / iters
-    info = device_info()
-    rays_per_s = queries_per_spp * spp / dt
     record = {
         "metric": "rays_per_s_per_chip_fwd_bwd",
-        "value": rays_per_s,
+        "value": detail["queries_per_spp"] * spp / dt,
         "unit": "rays/s",
         "vs_baseline": None,
-        "detail": {
-            "package": "mafrixraytracing_torch",
-            "scene": scene_name or "custom",
-            "triangles": int(scene.tri_mask.sum()),
-            "clusters": scene.cluster_min.shape[0],
-            "width": width,
-            "height": height,
-            "spp": spp,
-            "depth": depth,
-            "queries_per_spp": queries_per_spp,
-            "seconds_per_iter": dt,
-            "backend": "cuda",
-            "device": info["name"],
-            "power_limit": info["power_limit"],
-            "compact": list(config.compact),
-            "survival": [round(s, 4) for s in survival],
-        },
+        "detail": {**detail, "spp": spp, "seconds_per_iter": dt},
     }
     return record, grads
+
+
+def run_fit(width=256, height=256, spp=8, depth=5, iters=3, spec=None,
+            scene_name=None, lr=1e-3, smooth_geometry=4) -> dict:
+    """Time `iters` whole train steps of `opt.inverse` on `spec` (after one
+    warm-up step): the target is a render of the scene itself, the parameters
+    are `FIT_PARAMS`, each step ends with the loss read back as `fit` does.
+    The scene starts at its target, so `lr` is small: the steps are timed,
+    and the noise they follow should not take the scene apart. Returns the
+    JSON record."""
+    from mafrixraytracing_torch.opt import inverse
+
+    scene, camera, config, detail = _setup(width, height, depth, spec, scene_name)
+    dev = scene.tri_v0.device
+    with torch.no_grad():
+        target = P.render_image(scene, camera, width, height, spp,
+                                rng.root_key(0, dev), config)
+    params = {n: getattr(scene, n).detach().clone().requires_grad_()
+              for n in FIT_PARAMS}
+    t_opt = time.perf_counter()   # the first optimizer of a process is slow
+    optimizer = torch.optim.Adam(list(params.values()), lr=lr)
+    optimizer_setup = time.perf_counter() - t_opt
+    step = inverse.make_train_step(optimizer, spp, config,
+                                   smooth_geometry=smooth_geometry)
+    key, losses = rng.root_key(1, dev), []
+    for i in range(iters + 1):
+        if i == 1:      # step 0 was the warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        key, sub = rng.split(key)
+        loss, _ = step(params, scene, camera, target, sub)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    return {
+        "metric": "seconds_per_train_step",
+        "value": dt,
+        "unit": "s",
+        "vs_baseline": None,
+        "detail": {**detail, "spp": spp, "seconds_per_iter": dt,
+                   "rays_per_s_fwd_bwd": detail["queries_per_spp"] * spp / dt,
+                   "optimizer_setup_seconds": optimizer_setup,
+                   "params": list(FIT_PARAMS), "losses": losses},
+    }
 
 
 def spec_from_env(width, height):
@@ -164,13 +223,13 @@ def main() -> int:
     width = int(os.environ.get("BENCH_WIDTH", 256))
     height = int(os.environ.get("BENCH_HEIGHT", 256))
     spec, name = spec_from_env(width, height)
-    record, _ = run(
-        width=width, height=height,
-        spp=int(os.environ.get("BENCH_SPP", 64)),
-        depth=int(os.environ.get("BENCH_DEPTH", 5)),
-        iters=int(os.environ.get("BENCH_ITERS", 3)),
-        spec=spec, scene_name=name,
-    )
+    fit = "--fit" in sys.argv[1:] or os.environ.get("BENCH_FIT") == "1"
+    kw = dict(width=width, height=height,
+              spp=int(os.environ.get("BENCH_SPP", 8 if fit else 64)),
+              depth=int(os.environ.get("BENCH_DEPTH", 5)),
+              iters=int(os.environ.get("BENCH_ITERS", 3)),
+              spec=spec, scene_name=name)
+    record = run_fit(**kw) if fit else run(**kw)[0]
     print(json.dumps(record))
     return 0
 

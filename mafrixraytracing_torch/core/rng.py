@@ -59,6 +59,13 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 
 
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """`jax.random.split` of one (2,) key -> (num, 2). Under the partitionable
+    threefry (the JAX default) child i hashes the counter (hi, lo) = (0, i)
+    and keeps both output words, which is `fold_in(key, i)`."""
+    return fold_in(key, torch.arange(num, dtype=torch.int64, device=key.device))
+
+
 def pixel_keys(key: torch.Tensor, n: int) -> torch.Tensor:
     """One key per element of a flat batch: fold_in of the batch index."""
     return fold_in(key, torch.arange(n, dtype=torch.int64, device=key.device))

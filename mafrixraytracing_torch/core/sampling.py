@@ -33,6 +33,16 @@ def local_to_world(lx, ly, lz, n: V3) -> V3:
     return t * lx + b * ly + n * lz
 
 
+def uniform_hemisphere(u: torch.Tensor, n: V3) -> V3:
+    """Uniform direction on the hemisphere around n, pdf = 1 / (2 pi) (the
+    analytic form of the reference's rejection sampler,
+    `Core/Materials/Material.fs:9-14`)."""
+    z = u[..., 0]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = TWO_PI * u[..., 1]
+    return local_to_world(r * torch.cos(phi), r * torch.sin(phi), z, n)
+
+
 def cosine_hemisphere(u: torch.Tensor, n: V3):
     """Cosine-weighted hemisphere sample around n -> (dir, pdf = cos/pi)."""
     r = torch.sqrt(torch.clamp(u[..., 0], 0.0, 1.0))

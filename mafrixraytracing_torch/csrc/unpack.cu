@@ -13,8 +13,8 @@
 // scattered reads cost little. The design gives one thread to each
 // (column, ray) pair with rays along x, so every warp writes 128 contiguous
 // bytes of one column, fully coalesced. The index is read once per column
-// block and hits L1/L2 after the first. Forward only: the backward is an
-// index_add_ of the cotangents into the table (ops/unpack.py).
+// block and hits L1/L2 after the first. Forward only: the backward is the
+// deterministic scatter-add kernel of csrc/scatter.cu (ops/unpack.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

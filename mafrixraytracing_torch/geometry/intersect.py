@@ -27,6 +27,7 @@ from mafrixraytracing_torch.core.math import safe_sqrt
 from mafrixraytracing_torch.core.types import HitS, ShadingS
 from mafrixraytracing_torch.core.v3 import V3
 from mafrixraytracing_torch.materials.texture import sample_atlas
+from mafrixraytracing_torch.ops.unpack import gather_rows
 
 BIG = 1e30
 DET_EPS = 1e-10
@@ -124,7 +125,11 @@ def packed_attr_table(scene) -> torch.Tensor:
       0:3 v0 | center    3:6 e1 | radius (col 3)    6:9 e2 | velocity
       9:18 n0 n1 n2 (shading normals) | 0    18:24 uv0 uv1 uv2 | 0
       24:27 albedo  27:30 emission  30 fuzz  31 ior  32 material type
-      33 texture page  34 emitter two-sided  35 material id"""
+      33 texture page  34 emitter two-sided  35 material id
+    Albedo and emission, the material leaves a fit optimizes, are joined with
+    `gather_rows`: thousands of rows share a material, and its backward sums
+    them with the deterministic scatter-add kernel (advanced indexing's
+    backward took 11 ms of a 78 ms train step on an H100 here)."""
     m = scene.tri_mat.long()
     lid = scene.tri_light.long()
     L = scene.light_v0.shape[0]
@@ -135,7 +140,7 @@ def packed_attr_table(scene) -> torch.Tensor:
             scene.tri_v0, scene.tri_e1, scene.tri_e2,
             scene.tri_n0, scene.tri_n1, scene.tri_n2,
             scene.tri_uv0, scene.tri_uv1, scene.tri_uv2,
-            scene.mat_albedo[m], scene.mat_emission[m],
+            gather_rows(scene.mat_albedo, m), gather_rows(scene.mat_emission, m),
             scene.mat_fuzz[m][:, None], scene.mat_ior[m][:, None],
             f(scene.mat_type[m]), f(scene.mat_tex[m]), f(two), f(m),
         ],
@@ -149,7 +154,7 @@ def packed_attr_table(scene) -> torch.Tensor:
         [
             scene.sph_center, scene.sph_radius[:, None], zeros(2),
             scene.sph_velocity, zeros(15),
-            scene.mat_albedo[ms], scene.mat_emission[ms],
+            gather_rows(scene.mat_albedo, ms), gather_rows(scene.mat_emission, ms),
             scene.mat_fuzz[ms][:, None], scene.mat_ior[ms][:, None],
             f(scene.mat_type[ms]), f(scene.mat_tex[ms]), zeros(1), f(ms),
         ],

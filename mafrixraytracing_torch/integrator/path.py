@@ -8,8 +8,15 @@ per-bounce bucket (`compact` schedule). If more rays survive than a bucket
 holds, a uniform-random subset is kept and reweighted by live / bucket
 (population-control Russian roulette, unbiased).
 
-The estimator: cosine-sampled BSDFs, NEE with power-2 MIS against BSDF
-sampling, emissive surfaces visible, Russian roulette from `rr_start`.
+Two estimators (`PathTracerConfig.estimator`):
+- "physical" (default): cosine-sampled BSDFs, NEE with power-2 MIS against
+  BSDF sampling, emissive surfaces visible, Russian roulette from `rr_start`.
+- "mafrix": the reference renderer's estimator with its quirks, for the
+  parity gate (JAX `_trace_mafrix`, `path.py:625-687`): uniform-hemisphere
+  lambert with weight albedo * 2 cos; direct light cos_s * I * |cos_l| *
+  Area^2 / d^2; the direct term multiplied by the BSDF sample's weight; the
+  shadow ray cast from the hit point itself; lights invisible to camera and
+  BSDF rays; a miss is black; no Russian roulette.
 Gradients flow through autograd to material albedo, light radiance and
 vertex positions (detached closest-hit selection and visibility,
 reparameterized hit attributes — see `geometry.intersect`).
@@ -47,6 +54,7 @@ class PathTracerConfig:
     `Scene/Scene.fs:304`; shadow epsilon, `Integrators.fs:44,108`)."""
 
     max_depth: int = 5          # number of surface interactions
+    estimator: str = "physical"  # "physical" | "mafrix"
     mis: bool = True
     nee: bool = True
     rr_start: int = 3           # bounce index where Russian roulette begins
@@ -158,6 +166,65 @@ def _bounce(scene, state: PathState, bounce: int, config: PathTracerConfig,
     return PathState(o, d, thr, rad, bs.pdf, alive, bs.specular, state.keys)
 
 
+def _bounce_mafrix(scene, state: PathState, bounce: int,
+                   config: PathTracerConfig, packed: torch.Tensor) -> PathState:
+    """One wavefront bounce of the reference-parity estimator (JAX
+    `_trace_mafrix.bounce_step`, `path.py:632-678`, the reference's
+    `Integrators.fs:107-138`). `prev_pdf` and `specular` are carried
+    unused."""
+    o, d, thr, rad, alive = state.o, state.d, state.thr, state.rad, state.alive
+    bkey = rng.bounce_key(state.keys, bounce)
+    t_max = torch.where(alive, 1e8, 0.0)
+    hit, sh = dispatch.intersect_shade_soa(scene, o, d, config.t_min, t_max,
+                                           packed=packed)
+    zero_c = torch.zeros_like(hit.t)
+    zero = V3(zero_c, zero_c, zero_c)
+    alive = alive & hit.valid
+
+    # BSDF sample first: its weight multiplies the direct term and the
+    # recursion alike, `(l / pdf + TraceRay(...)) * col / pdf`. An emitter
+    # scatters nothing: it ends the path with weight 0.
+    bs = sample_bsdf_soa(sh, hit, -d, bkey, glossy=scene.has_glossy,
+                         metal=scene.has_metal, dielectric=scene.has_dielectric,
+                         uniform_lambert=True)
+    emitter = sh.mtype == EMISSIVE
+    thr = v3.where(alive, thr * v3.where(emitter, zero, bs.weight), thr)
+
+    # direct light with the reference's Area^2 fold:
+    # l / pdf_li = cos_s * I * |cos_l| * Area^2 / d^2 (`Light.fs:48-59`)
+    p, ln, radiance, _, ls_valid = L.sample_area_lights_soa(scene, bkey)
+    to_l = p - hit.point
+    d2 = torch.clamp(v3.dot(to_l, to_l), min=1e-12)
+    dist = torch.sqrt(d2)
+    wl = to_l.map(lambda c: c / dist)
+    cos_s = v3.dot(hit.normal, wl)
+    cos_l = -v3.dot(ln, wl)
+    # the reference's shadow protocol: from the hit point itself over
+    # (eps, dist - eps), no offset (`Integrators.fs:44`); lanes that cannot
+    # contribute get t_max = 0 so the cull drops them
+    candidate = alive & ls_valid & (cos_l > 0.0) & (cos_s > 0.0)
+    blocked = dispatch.occluded_soa(
+        scene, hit.point, wl, L.SHADOW_EPS,
+        torch.where(candidate, dist - L.SHADOW_EPS, 0.0))
+    direct = radiance * (cos_s * cos_l.abs() * scene.light_total_area**2 / d2)
+    rad = rad + v3.where(candidate & ~blocked, thr * direct, zero)
+
+    alive = alive & bs.valid & ~emitter
+    flip = torch.where(v3.dot(hit.normal, bs.wi) >= 0.0, RAY_EPS, -RAY_EPS)
+    o = hit.point + hit.normal * flip
+    thr = v3.where(alive, thr, zero)
+    return PathState(o, bs.wi, thr, rad, state.prev_pdf, alive, state.specular,
+                     state.keys)
+
+
+def _bounce_fn(config: PathTracerConfig):
+    if config.estimator == "physical":
+        return _bounce
+    if config.estimator == "mafrix":
+        return _bounce_mafrix
+    raise ValueError(f"unknown estimator {config.estimator!r}")
+
+
 # --- wavefront compaction ---------------------------------------------------
 
 
@@ -236,7 +303,8 @@ def _compact_bounce_loop(scene, state: PathState, config, packed) -> V3:
     per lane in the original lane order."""
     B = state.alive.shape[0]
     buckets = compact_buckets(config, B)
-    state = _bounce(scene, state, 0, config, packed)
+    bounce = _bounce_fn(config)
+    state = bounce(scene, state, 0, config, packed)
     pid = torch.arange(B, device=state.alive.device)
     frag_pid, frag_rad = [], []
     for b in range(1, config.max_depth):
@@ -256,7 +324,7 @@ def _compact_bounce_loop(scene, state: PathState, config, packed) -> V3:
             state = state._replace(
                 alive=torch.arange(K, device=pid.device) < n_sel)
             pid = pid[perm[:K]]
-        state = _bounce(scene, state, b, config, packed)
+        state = bounce(scene, state, b, config, packed)
     frag_pid.append(pid)
     frag_rad.append(state.rad)
     order = torch.argsort(torch.cat(frag_pid))
@@ -280,8 +348,9 @@ def trace_radiance(scene, o: V3, d: V3, keys: torch.Tensor,
     if config.compact and config.max_depth > 1:
         rad = _compact_bounce_loop(scene, state, config, packed)
     else:
+        bounce = _bounce_fn(config)
         for b in range(config.max_depth):
-            state = _bounce(scene, state, b, config, packed)
+            state = bounce(scene, state, b, config, packed)
         rad = state.rad
     return rad.arr()
 
@@ -445,3 +514,48 @@ def render_image(scene, camera, width: int, height: int, spp: int,
         acc[ci] = acc[ci] + rad.reshape(Bc, G, 3).sum(dim=1)
     img = torch.cat(acc)[:B].index_select(0, torch.as_tensor(inv, device=dev)) / spp
     return img.reshape(height, width, 3)
+
+
+def render_sample_batch(scene, camera, width: int, height: int, sample_idx: int,
+                        key: torch.Tensor, config: PathTracerConfig) -> torch.Tensor:
+    """One 1-spp pass over all pixels in row-major order (the progressive
+    film's unit of work, reference `Film.GetFrame(integrator, 1)`,
+    `Scene/Scene.fs:332`) -> flat (width * height, 3)."""
+    ids = torch.arange(width * height, device=scene.tri_v0.device)
+    return render_flat_pixels(scene, camera, ids, width, height, 1, key, config,
+                              sample_offset=sample_idx)
+
+
+def render_flat_pixels(scene, camera, pixel_ids: torch.Tensor, width: int,
+                       height: int, spp: int, key: torch.Tensor,
+                       config: PathTracerConfig,
+                       sample_offset: int = 0) -> torch.Tensor:
+    """Trace `spp` jittered samples for a flat batch of pixel ids (row-major
+    y * width + x) -> (B, 3), the mean over the samples (JAX
+    `_render_flat_pixels`, `parallel/render.py:26-53`). Sample s of a pixel
+    has the key `sample_key(fold_in(key, pixel_id), s + sample_offset)`,
+    whatever the batch's order, so callers can split one sample set across
+    calls (`opt.inverse`'s microbatches) without reusing a stream. The JAX
+    version scans the samples one wavefront each; here G samples of a pixel
+    sit consecutively in one wavefront of ~config.wavefront rays, which
+    changes only the order of the sum over samples."""
+    dev = scene.tri_v0.device
+    B = pixel_ids.shape[0]
+    ids = pixel_ids.to(device=dev, dtype=torch.int64)
+    px = (ids % width).to(torch.float32)
+    py = (ids // width).to(torch.float32)
+    base_keys = rng.fold_in(key.to(dev), ids)
+    G = _spp_group(spp, B, config.wavefront)
+    pxg, pyg = px.repeat_interleave(G), py.repeat_interleave(G)
+    packed = packed_attr_table(scene)
+    acc = torch.zeros((B, 3), dtype=torch.float32, device=dev)
+    for g in range(spp // G):
+        sidx = sample_offset + g * G + torch.arange(G, device=dev)
+        skeys = rng.sample_key(base_keys[:, None, :], sidx[None, :]).reshape(B * G, 2)
+        jit_uv = rng.uniforms(skeys, 1000, (2,))
+        lens_uv = rng.uniforms(skeys, 1001, (2,))
+        o, d = camera.get_rays((pxg + jit_uv[:, 0]) / width,
+                               (pyg + jit_uv[:, 1]) / height, lens_uv=lens_uv)
+        rad = trace_radiance(scene, o, d, skeys, config, packed)
+        acc = acc + rad.reshape(B, G, 3).sum(dim=1)
+    return acc / spp

@@ -21,6 +21,7 @@ from mafrixraytracing_torch.core import rng, v3
 from mafrixraytracing_torch.core.sampling import local_to_world, uniform_triangle
 from mafrixraytracing_torch.core.v3 import V3
 from mafrixraytracing_torch.materials.bsdf import eval_bsdf_soa
+from mafrixraytracing_torch.ops.unpack import gather_rows
 
 SHADOW_EPS = 1e-3
 
@@ -42,27 +43,33 @@ def packed_light_table(scene) -> torch.Tensor:
                      dim=1)
 
 
-def nee_area_soa(scene, hit, key, occluded_fn, mis: bool, sh, wo=None) -> V3:
-    """Direct light from area lights: f * cos_s * Le * cos_l / (d^2 pdf_A),
-    power-2 MIS against the BSDF pdf when `mis`."""
+def sample_area_lights_soa(scene, key):
+    """Draw one point on the scene's area lights per ray (JAX
+    `sample_area_lights`, `lights.py:43`) -> (point, normal, radiance as V3;
+    two_sided, valid as (B,) bools)."""
     u_pick = rng.uniforms(key, 10)
     u_bary = rng.uniforms(key, 11, (2,))
     L = scene.light_v0.shape[0]
     li = torch.searchsorted(scene.light_cdf, u_pick, right=True).clamp(0, L - 1)
-    # index_select, not table[li]: its backward is an index_add_ of the B
-    # rows into the L-row table, while advanced indexing's backward sorts the
-    # B indices first, which with L << B distinct rows took 75% of an H100
-    # fwd+bwd (the JAX package uses a one-hot product here for the TPU)
-    row = packed_light_table(scene).index_select(0, li)  # (B, 16)
+    # gather_rows, not table[li]: B rays gather L << B rows, and its backward
+    # is the deterministic scatter-add kernel (advanced indexing's backward
+    # took 75% of an H100 fwd+bwd here, and index_add_ sums with atomics in
+    # an order that changes from run to run; the JAX package uses a one-hot
+    # product for the TPU)
+    row = gather_rows(packed_light_table(scene), li)  # (B, 16)
     vec = lambda k: V3(row[:, k], row[:, k + 1], row[:, k + 2])  # noqa: E731
     b1, b2 = uniform_triangle(u_bary)
     p = vec(0) + vec(3) * b1 + vec(6) * b2
-    ln = vec(9)
-    radiance = vec(12)
     two_sided = torch.remainder(row[:, 15], 2.0) > 0.5
-    row_live = row[:, 15] >= 2.0
+    valid = scene.light_mask.any() & (row[:, 15] >= 2.0)
+    return p, vec(9), vec(12), two_sided, valid
+
+
+def nee_area_soa(scene, hit, key, occluded_fn, mis: bool, sh, wo=None) -> V3:
+    """Direct light from area lights: f * cos_s * Le * cos_l / (d^2 pdf_A),
+    power-2 MIS against the BSDF pdf when `mis`."""
+    p, ln, radiance, two_sided, ls_valid = sample_area_lights_soa(scene, key)
     pdf_area = light_pdf_area(scene)
-    ls_valid = scene.light_mask.any() & row_live
 
     to_l = p - hit.point
     d2 = torch.clamp(v3.dot(to_l, to_l), min=1e-12)

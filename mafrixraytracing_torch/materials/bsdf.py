@@ -26,6 +26,7 @@ from mafrixraytracing_torch.core.sampling import (
     cosine_hemisphere,
     fuzz_sphere,
     local_to_world,
+    uniform_hemisphere,
 )
 from mafrixraytracing_torch.core.v3 import V3
 
@@ -43,18 +44,28 @@ class BsdfSample(NamedTuple):
 
 
 def sample_bsdf_soa(sh, hit, wo: V3, key, glossy: bool = True,
-                    metal: bool = True, dielectric: bool = True) -> BsdfSample:
+                    metal: bool = True, dielectric: bool = True,
+                    uniform_lambert: bool = False) -> BsdfSample:
     """Sample a scattering direction per ray. The `glossy`/`metal`/
     `dielectric` flags (the scene's `has_*`) skip lobes statically; with all
-    False this is the pure-lambert shader."""
+    False this is the pure-lambert shader. `uniform_lambert` samples the
+    lambert lobe uniformly over the hemisphere with the reference's folded
+    weight albedo / pi * cos * 2 pi (`Material.fs:33-36`), for the
+    reference-parity estimator."""
     n = hit.normal
     d = -wo
     u_l = rng.uniforms(key, 0, (2,))
 
-    # --- lambert (every scene's base lobe), cosine-weighted ---
-    wi, pdf = cosine_hemisphere(u_l, n)
-    cos_lam = torch.clamp(v3.dot(wi, n), min=0.0)
-    weight = sh.albedo
+    # --- lambert (every scene's base lobe) ---
+    if uniform_lambert:
+        wi = uniform_hemisphere(u_l, n)
+        cos_lam = torch.clamp(v3.dot(wi, n), min=0.0)
+        pdf = torch.full_like(cos_lam, 1.0 / TWO_PI)
+        weight = sh.albedo * (2.0 * cos_lam)
+    else:
+        wi, pdf = cosine_hemisphere(u_l, n)  # cosine-weighted
+        cos_lam = torch.clamp(v3.dot(wi, n), min=0.0)
+        weight = sh.albedo
     valid = cos_lam > 0.0
     specular = torch.zeros_like(valid)
     if metal or glossy:

@@ -31,7 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "--fmad=false"]
 
 LAUNCHES: dict[str, int] = {"closest": 0, "anyhit": 0, "unpack": 0,
-                            "closest_super": 0, "anyhit_super": 0}
+                            "closest_super": 0, "anyhit_super": 0, "scatter": 0}
 
 _lib = None
 
@@ -101,14 +101,16 @@ def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         handle = ctypes.CDLL(str(build()))
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
         handle.mfx_closest.argtypes = [P, P, P, P, P, I, I, F, P, P, P]
         handle.mfx_anyhit.argtypes = [P, P, P, P, P, I, I, F, P, P]
         handle.mfx_unpack.argtypes = [P, P, I, I, P, P]
         handle.mfx_closest_super.argtypes = [P, P, P, P, P, P, I, I, I, F, F, F, P, P, P]
         handle.mfx_anyhit_super.argtypes = [P, P, P, P, P, P, I, I, I, F, F, F, P, P]
+        handle.mfx_scatter.argtypes = [P, L, L, P, P, P, I, I, I, P, P, P]
         for fn in (handle.mfx_closest, handle.mfx_anyhit, handle.mfx_unpack,
-                   handle.mfx_closest_super, handle.mfx_anyhit_super):
+                   handle.mfx_closest_super, handle.mfx_anyhit_super,
+                   handle.mfx_scatter):
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib

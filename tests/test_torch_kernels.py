@@ -10,7 +10,9 @@ against its plain version on the card: closest-hit `idx` equal and `t`
 within rtol 1e-4 / atol 1e-5 (the search contract; the kernels are built
 to agree bit for bit), any-hit and the gather exactly, for the flat walks
 (A, B) and the two-level walks (D, E: small scenes with `SUPER_MIN_C`
-patched to 0, and a mesh of 20,000 triangles); and a small render
+patched to 0, and a mesh of 20,000 triangles); the scatter-add (J) within
+1e-5 of the sum of |terms| of a float64 sum and bit-equal across launches;
+a gradient evaluation of `opt.inverse` bit-equal when repeated; and a small render
 through the kernels against the same render on the CPU (image rtol 1e-3 /
 atol 1e-4 on 99.5% of pixels: the two devices' sin/cos/sqrt round
 differently, which can flip a grazing branch).
@@ -107,13 +109,17 @@ def test_wrappers_take_plain_versions_on_cpu():
     o, d, t_max = rays(200, CASES["soup"][1], seed=9, device="cpu")
     oi.find_closest_soa(ts, o, d, T_MIN, t_max)
     oi.occluded_soa(ts, o, d, T_MIN, t_max)
-    ou.fetch_cols(torch.zeros(8, 36), torch.zeros(4, dtype=torch.long))
+    table = torch.zeros(8, 36, requires_grad=True)
+    ou.fetch_cols(table, torch.zeros(4, dtype=torch.long)).sum().backward()
+    assert table.grad[0].eq(4.0).all() and table.grad[1:].eq(0.0).all()
+    ou.scatter_rows(torch.ones(3, 4), torch.zeros(4, dtype=torch.long), 8)
     big = compile_scene(bumpy_sphere(), device="cpu").scene
     assert big.cluster_min.shape[0] > oi.SUPER_MIN_C
     oi.find_closest_soa(big, o, d, T_MIN, t_max)
     oi.occluded_soa(big, o, d, T_MIN, t_max)
     assert cuda.LAUNCHES == {"closest": 0, "anyhit": 0, "unpack": 0,
-                             "closest_super": 0, "anyhit_super": 0}
+                             "closest_super": 0, "anyhit_super": 0,
+                             "scatter": 0}
 
 
 def test_kernel_entry_points_refuse_cpu_tensors():
@@ -126,6 +132,8 @@ def test_kernel_entry_points_refuse_cpu_tensors():
         oi.anyhit_kernel(*walk, T_MIN)
     with pytest.raises(ValueError, match="CUDA"):
         ou.unpack_kernel(torch.zeros(8, 36), torch.zeros(4, dtype=torch.long))
+    with pytest.raises(ValueError, match="CUDA"):
+        ou.scatter_kernel(torch.zeros(36, 4), torch.zeros(4, dtype=torch.long), 8)
     big = compile_scene(bumpy_sphere(), device="cpu").scene
     walk, *_ = oi._prep(big, o, d, T_MIN, t_max, anyhit=False)
     with pytest.raises(ValueError, match="CUDA"):
@@ -156,7 +164,7 @@ def test_library_name_tracks_sources():
     assert name.startswith("libmfx_kernels_") and name.endswith(".so")
     assert cuda.library_path() == cuda.library_path()
     assert {p.name for p in cuda._sources()} == {
-        "intersect.cu", "intersect_super.cu", "unpack.cu"}
+        "intersect.cu", "intersect_super.cu", "scatter.cu", "unpack.cu"}
 
 
 # --- on the card -----------------------------------------------------------
@@ -250,12 +258,98 @@ def test_fetch_cols_backward_on_card(card):
     idx = torch.as_tensor(rs.integers(0, 40, 5000))
     ct = torch.as_tensor(rs.normal(size=(36, 5000)).astype(np.float32))
     grads = []
-    for dev in ("cpu", card):
+    cuda.reset_launches()
+    for dev in ("cpu", card, card):
         t = table.to(dev, copy=True).requires_grad_()
         (ou.fetch_cols(t, idx.to(dev)) * ct.to(dev)).sum().backward()
         grads.append(t.grad.cpu())
-    # the card's index_add_ sums with atomics, in no fixed order
+    assert cuda.LAUNCHES["scatter"] == 2
+    # the kernel sums in another order than the CPU's index_add_
     torch.testing.assert_close(grads[1], grads[0], rtol=1e-5, atol=1e-5)
+    assert torch.equal(grads[1], grads[2])
+
+
+def scatter_case(name, cols, device):
+    """(ct (K, B), idx (B,), P): inputs of the scatter-add, from a seed."""
+    rs = np.random.default_rng(len(name) + cols)
+    B, P = {"few_rows": (100_000, 17), "many_rows": (70_001, 65_544),
+            "one_row": (50_000, 136), "tiny": (7, 5),
+            "runs": (40_960, 5_000)}[name]
+    if name == "one_row":
+        idx = np.full(B, 77)
+    elif name == "runs":   # sorted runs of 1..600, as primary hits give
+        idx = np.repeat(np.arange(P), rs.integers(1, 600, P))[:B]
+        idx = np.concatenate([idx, rs.integers(0, P, B - idx.size)])
+    else:
+        idx = rs.integers(0, P, B)
+    ct = rs.normal(size=(cols, B)).astype(np.float32)
+    ct[:, rs.random(B) < 0.1] = 0.0   # dead lanes carry zero cotangent
+    return (torch.as_tensor(ct).to(device),
+            torch.as_tensor(idx, dtype=torch.int64).to(device), P)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [1, 3, 16, 36])
+@pytest.mark.parametrize("name", ["few_rows", "many_rows", "one_row", "tiny",
+                                  "runs"])
+def test_scatter_kernel_matches_plain_version(card, name, cols):
+    """Kernel J against a float64 sum (|error| <= 1e-5 * sum of |terms| +
+    1e-6 per entry: float32 sums in another order), against its plain
+    version, on strided cotangents, and bit-equal across two launches."""
+    ct, idx, P = scatter_case(name, cols, card)
+    out = ou.scatter_kernel(ct, idx, P)
+    torch.cuda.synchronize()
+    oracle = torch.zeros((P, cols), dtype=torch.float64, device=card)
+    oracle.index_add_(0, idx, ct.t().double())
+    mass = torch.zeros_like(oracle).index_add_(0, idx, ct.t().double().abs())
+    assert bool(((out.double() - oracle).abs() <= 1e-5 * mass + 1e-6).all())
+    torch.testing.assert_close(out, ou.scatter_rows_reference(ct, idx, P),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(out, ou.scatter_kernel(ct, idx, P))
+    rows = ct.t().contiguous()           # the same values as (B, K) rows
+    assert torch.equal(out, ou.scatter_kernel(rows.t(), idx, P))
+
+
+@pytest.mark.cuda
+def test_gather_rows_backward_on_card(card):
+    rs = np.random.default_rng(1)
+    for cols, P in ((16, 8), (3, 300)):
+        table = torch.as_tensor(rs.normal(size=(P, cols)).astype(np.float32))
+        idx = torch.as_tensor(rs.integers(0, P, 20_000))
+        ct = torch.as_tensor(rs.normal(size=(20_000, cols)).astype(np.float32))
+        grads = []
+        for dev in ("cpu", card, card):
+            t = table.to(dev, copy=True).requires_grad_()
+            (ou.gather_rows(t, idx.to(dev)) * ct.to(dev)).sum().backward()
+            grads.append(t.grad.cpu())
+        torch.testing.assert_close(grads[1], grads[0], rtol=1e-5, atol=1e-4)
+        assert torch.equal(grads[1], grads[2])
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_is_reproducible(card):
+    """Two gradient evaluations from the same state are bit-equal on the
+    card, and close to the CPU's."""
+    from mafrixraytracing_torch.opt import inverse
+
+    cfg = P.PathTracerConfig(max_depth=3, compact=(1.0, 0.7, 0.3))
+    out = []
+    for dev in ("cpu", card, card):
+        cs = compile_scene(builtin.cornell_box(32, 32), device=dev)
+        with torch.no_grad():
+            target = P.render_image(cs.scene, cs.camera, 32, 32, 4,
+                                    rng.root_key(7, dev), cfg)
+        params = {n: getattr(cs.scene, n).detach().clone().requires_grad_()
+                  for n in ("mat_albedo", "light_radiance", "mesh_vertices")}
+        out.append(inverse.loss_and_grads(params, cs.scene, cs.camera, target,
+                                          rng.root_key(3, dev), 2, cfg))
+    (l_c, g_c), (l_1, g_1), (l_2, g_2) = out
+    assert torch.equal(l_1, l_2)
+    for n in g_1:
+        assert torch.equal(g_1[n], g_2[n]), n
+    torch.testing.assert_close(l_1.cpu(), l_c, rtol=1e-3, atol=1e-6)
+    torch.testing.assert_close(g_1["mat_albedo"].cpu(), g_c["mat_albedo"],
+                               rtol=2e-2, atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -158,6 +158,24 @@ def test_render_image_matches_jax():
     assert abs(timg.mean() - jimg.mean()) <= 1e-4 * abs(jimg.mean())
 
 
+def test_render_image_mafrix_matches_jax():
+    """The reference-parity estimator through `render_image`, with the same
+    tolerances as the physical one."""
+    W = H = 16
+    jcs, ts, tcam = cornell(W, H)
+    jimg = np.asarray(JP.render_image(
+        jcs.scene, jcs.camera, W, H, 2, jax.random.key(7),
+        JP.PathTracerConfig(max_depth=3, estimator="mafrix", backend="jnp")))
+    timg = TP.render_image(ts, tcam, W, H, 2, trng.root_key(7, "cpu"),
+                           TP.PathTracerConfig(max_depth=3, estimator="mafrix"))
+    timg = timg.numpy()
+    assert TP.PathTracerConfig().estimator == "physical"
+    close = np.isclose(timg, jimg, rtol=1e-3, atol=1e-4).all(axis=-1)
+    assert close.mean() >= 0.99, close.mean()
+    assert abs(timg.mean() - jimg.mean()) <= 1e-3 * abs(jimg.mean())
+    assert timg.mean() > 0.01
+
+
 def test_gradients_match_jax():
     W = H = 16
     jcs, ts, tcam = cornell(W, H)
@@ -200,6 +218,11 @@ def test_runs_without_jax():
         "    mt.PathTracerConfig(compact=(1.0, 0.7, 0.3, 0.15, 0.05)))\n"
         "assert img.shape == (8, 8, 3) and bool(img.isfinite().all())\n"
         "assert float(img.mean()) > 0\n"
+        "from mafrixraytracing_torch.opt import inverse\n"
+        "fitted, losses = inverse.fit(cs.scene, cs.camera, img.detach(),\n"
+        "    ('mat_albedo', 'mesh_vertices'), steps=2, spp=1,\n"
+        "    config=mt.PathTracerConfig(max_depth=2), smooth_geometry=1)\n"
+        "assert len(losses) == 2 and all(l == l for l in losses)\n"
         "assert not any(m.startswith('mafrixraytracing_tpu') for m in sys.modules)\n"
         "print('ok')\n"
     )

@@ -61,3 +61,23 @@ def test_batched_sample_keys_match_render_layout():
     tk = trng.pixel_keys(trng.root_key(9, "cpu"), 16)
     tsk = trng.sample_key(tk[:, None, :], (torch.arange(4) + 8)[None, :])
     np.testing.assert_array_equal(_kd(jsk), tsk.reshape(64, 2).numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split_bit_equal_chained(seed):
+    """`fit` walks its key chain with split: bit-equal to `jax.random.split`
+    under the installed JAX's defaults, five deep."""
+    jk, tk = jax.random.key(seed), trng.root_key(seed, "cpu")
+    for _ in range(5):
+        jk, jsub = jax.random.split(jk)
+        tk, tsub = trng.split(tk)
+        np.testing.assert_array_equal(_kd(jk), tk.numpy())
+        np.testing.assert_array_equal(_kd(jsub), tsub.numpy())
+
+
+@pytest.mark.parametrize("num", [1, 2, 5])
+def test_split_num(num):
+    jk = jax.random.split(jax.random.key(77), num)
+    tk = trng.split(trng.root_key(77, "cpu"), num)
+    assert tk.shape == (num, 2) and tk.dtype == torch.int64
+    np.testing.assert_array_equal(_kd(jk), tk.numpy())
