@@ -12,7 +12,8 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
 2. Kernel parity: each kernel against its plain PyTorch version on the same
    inputs, and each one's time beside its plain version's, its bound on the
    card and, where one PyTorch call computes the same function, that call's
-   time. The flat walks (closest, anyhit) and the gather on Cornell primary
+   time (a plain version is timed over the one call that the comparison
+   makes). The flat walks (closest, anyhit) and the gather on Cornell primary
    and shadow rays at B = 524,288 and on a seeded soup of 8,192 small
    triangles (64 clusters) at a non-aligned B with ~10% dead rays. The
    two-level walks (closest_super, anyhit_super) and the gather at P =
@@ -28,7 +29,12 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    65,544) and of Cornell (P = 136) at B = 524,288, on one row for every
    ray, on a sliced non-aligned B and a compacted size with ~10% dead lanes
    of zero cotangent, and with 16 and 3 columns; two launches on the same
-   inputs must be bit-equal.
+   inputs must be bit-equal. The fused-cull searches (fused_closest,
+   fused_anyhit on Cornell and the soup; fused_closest_super,
+   fused_anyhit_super on the mesh) on the rays of every walk above: bit-equal
+   to their plain versions and to the list kernels fed by the PyTorch cull,
+   each one's time beside the time of the cull with its conversions plus the
+   list kernel on the same rays.
 3. Forward, Cornell: 256x256, 64 spp, depth 5, NEE + MIS + Russian roulette,
    compaction calibrated from `trace_stats` as the benchmark does. The image
    must be finite with a sane mean, the launch counts of closest, anyhit and
@@ -60,6 +66,18 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    PyTorch's determinism check names during one gradient evaluation. Then a
    short Cornell fit (albedo, 64x64, 4 steps) through closest, anyhit, unpack
    and scatter.
+8. The fused-cull search at full width (`ops.intersect.FUSED_CULL` patched
+   on): the forward frames of 3 and 5 again, each `torch.equal` to the list
+   path's image, with the launch counts of the fused kernels > 0 and those of
+   the list kernels 0; forward + backward on the mesh through the benchmark's
+   path, gradients bit-equal to the list path's at the same seed; s/frame and
+   kernel launches per frame of both paths, taken in turns (list, fused,
+   fused, list).
+9. The other entry points: a 128x128 Whitted render of Cornell with the
+   fused search (finite, two renders bit-equal, a PNG to the temp directory),
+   a 64x64 motion-blur render of a moving sphere (finite, the flag changes
+   the picture), and the native OBJ loader on the mesh's OBJ file, equal to
+   the Python parser's arrays, with both parse times.
 
 Then, on lines of their own: the kernels' JSON record, the nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA
@@ -76,8 +94,14 @@ child of a supercluster listed for its tile) whose box it enters no later
 than its final hit; a live any-hit ray that ends unoccluded needs every such
 cluster whose box it enters before tmax, and one that ends occluded needs one
 cluster; a dead ray needs none. "Enters" is the slab test of
-`ops.intersect.refine_children`. The gather and the scatter-add are bound by
-bytes: each input read once and each output written once.
+`ops.intersect.refine_children`. A fused-cull search needs the same tests as
+the list walk on the same rays, plus one slab test (27 fp32 operations: per
+axis two subtractions, two products, a minimum, a maximum and two running
+extremes, then three comparisons) for every live ray against every live box
+of its table; its bytes are its rays (7 rows), the box table, the triangle
+table (and the child bounds) and its outputs, once. The gather and the
+scatter-add are bound by bytes: each input read once and each output written
+once.
 """
 from __future__ import annotations
 
@@ -109,6 +133,7 @@ MESH_FACES = 36996          # the face count of the reference's largest model
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS = 67e12          # fp32 outside the tensor cores, same sheet
 FLOPS_PER_TEST = 30         # one plane + barycentric ray-triangle test
+FLOPS_PER_SLAB = 27         # one ray-box slab test of the in-block cull
 
 
 def fail(msg: str):
@@ -137,6 +162,32 @@ def time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def run_once_ms(fn):
+    """(fn(), device milliseconds of that one call)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+@contextmanager
+def fused_cull(on=True):
+    """Patch `ops.intersect.FUSED_CULL` for the block."""
+    from mafrixraytracing_torch.ops import intersect as oi
+
+    before, oi.FUSED_CULL = oi.FUSED_CULL, on
+    try:
+        yield
+    finally:
+        oi.FUSED_CULL = before
+
+
 @contextmanager
 def plain_versions():
     """Route the forward kernels' wrappers to their plain PyTorch versions
@@ -157,6 +208,12 @@ def pick(walk):
     walk input of the flat or of the two-level path."""
     from mafrixraytracing_torch.ops import intersect as oi
 
+    if oi._is_fused(walk):
+        if oi._is_super(walk):
+            return (oi.fused_closest_super_kernel, oi.fused_closest_super_reference,
+                    oi.fused_anyhit_super_kernel, oi.fused_anyhit_super_reference)
+        return (oi.fused_closest_kernel, oi.fused_closest_reference,
+                oi.fused_anyhit_kernel, oi.fused_anyhit_reference)
     if oi._is_super(walk):
         return (oi.closest_super_kernel, oi.closest_super_reference,
                 oi.anyhit_super_kernel, oi.anyhit_super_reference)
@@ -168,10 +225,13 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def walk_bound(scene, walk, t_min, t_final=None, occ=None):
+def walk_bound(scene, walk, t_min, t_final=None, occ=None, fused_walk=None):
     """The bound of one walk call on these inputs (see the module docstring)
     -> dict(bound_ms, bound_by, ray_cluster_pairs). `t_final` (closest hit:
-    the kernel's t, tmax on a miss) or `occ` (any hit) is this run's result."""
+    the kernel's t, tmax on a miss) or `occ` (any hit) is this run's result.
+    With `fused_walk` (the fused kernel's operands for the rays of `walk`)
+    the bound is the fused search's: the slab tests are added and the bytes
+    are those of its own operands."""
     import torch
 
     from mafrixraytracing_torch.ops import intersect as oi
@@ -206,16 +266,25 @@ def walk_bound(scene, walk, t_min, t_final=None, occ=None):
         pairs += int((keep & member[s // oi.TILE:e // oi.TILE, None]).sum())
     flops = pairs * oi.CLUSTER_SIZE * FLOPS_PER_TEST
     out_bytes = B * (8 if occ is None else 1)
-    t_bytes = (nbytes(*walk) + out_bytes) / HBM_BYTES_PER_S
+    in_bytes = nbytes(*walk)
+    extra = {}
+    if fused_walk is not None:
+        slabs = int(live.sum()) * int((fused_walk[-2][6] > 0.5).sum())
+        flops += slabs * FLOPS_PER_SLAB
+        in_bytes = nbytes(*fused_walk) - 4 * B      # the far row is not read
+        extra = dict(ray_box_slabs=slabs)
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S
     t_flops = flops / FP32_FLOPS
     return dict(bound_ms=1e3 * max(t_bytes, t_flops),
                 bound_by="operations" if t_flops >= t_bytes else "bytes",
-                ray_cluster_pairs=pairs)
+                ray_cluster_pairs=pairs, **extra)
 
 
-def compare_closest(walk, t_min, label):
-    """Kernel A vs its plain version on one walk input. Returns (max |dt|,
-    idx mismatches outside ties)."""
+def compare_closest(walk, t_min, label, same_as=None):
+    """A closest-hit kernel against its plain version on one walk input, and
+    (`same_as`: another kernel's (t, idx) on the same rays) bit for bit
+    against that kernel. The fused kernels must equal their plain versions
+    bit for bit too. Returns (max |dt|, t, idx, the plain version's ms)."""
     import torch
 
     from mafrixraytracing_torch.ops import intersect as oi
@@ -223,34 +292,106 @@ def compare_closest(walk, t_min, label):
     kernel, plain, _, _ = pick(walk)
     tk, ik = kernel(*walk, t_min)
     torch.cuda.synchronize()
-    tp, ip = plain(*walk, t_min)
-    torch.cuda.synchronize()
+    (tp, ip), plain_ms = run_once_ms(lambda: plain(*walk, t_min))
     tie = (tk - tp).abs() <= 1e-5
     bad_idx = int(((ik != ip) & ~tie).sum())
     t_ok = torch.isclose(tk, tp, rtol=1e-4, atol=1e-5).all().item()
     err = float((tk - tp).abs().max())
     n_hit = int((ik >= 0).sum())
+    exact = bool((ik == ip).all()) and torch.equal(tk, tp)
     print(f"  closest {label}: B={tk.shape[0]} hits={n_hit} max|dt|={err:.3g} "
-          f"idx mismatches (non-tie)={bad_idx} exact_idx={bool((ik == ip).all())}")
+          f"idx mismatches (non-tie)={bad_idx} bit-equal to plain={exact}"
+          + ("" if same_as is None else
+             f" bit-equal to the list kernel={torch.equal(tk, same_as[0]) and torch.equal(ik, same_as[1])}"))
     check(bad_idx == 0 and t_ok, f"closest kernel disagrees on {label}")
-    return err, tk, ik
+    if oi._is_fused(walk):
+        check(exact, f"fused closest kernel is not bit-equal to its plain version on {label}")
+    if same_as is not None:
+        check(torch.equal(tk, same_as[0]) and torch.equal(ik, same_as[1]),
+              f"fused closest kernel differs from the list kernel on {label}")
+    return err, tk, ik, plain_ms
 
 
-def compare_anyhit(walk, t_min, label):
+def compare_anyhit(walk, t_min, label, same_as=None):
+    """An any-hit kernel against its plain version and (`same_as`) against
+    another kernel's result on the same rays. Returns (error flag, occ, the
+    plain version's ms)."""
     import torch
-
-    from mafrixraytracing_torch.ops import intersect as oi
 
     _, _, kernel, plain = pick(walk)
     ok_ = kernel(*walk, t_min)
     torch.cuda.synchronize()
-    op = plain(*walk, t_min)
-    torch.cuda.synchronize()
+    op, plain_ms = run_once_ms(lambda: plain(*walk, t_min))
     diff = int((ok_ != op).sum())
     print(f"  anyhit {label}: B={ok_.shape[0]} occluded={int(ok_.sum())} "
-          f"mismatches={diff}")
+          f"mismatches={diff}"
+          + ("" if same_as is None else
+             f" equal to the list kernel={torch.equal(ok_, same_as)}"))
     check(diff == 0, f"any-hit kernel disagrees on {label}")
-    return float(diff > 0), ok_
+    if same_as is not None:
+        check(torch.equal(ok_, same_as),
+              f"fused any-hit kernel differs from the list kernel on {label}")
+    return float(diff > 0), ok_, plain_ms
+
+
+def cull_and_convert(scene, walk):
+    """What the list path does before its kernel and the fused path does
+    not: `_cull` on the walk's rays, the two conversions to int32, the copy of
+    the entries and the stacking of `far` into the rays."""
+    import torch
+
+    from mafrixraytracing_torch.core.v3 import V3
+    from mafrixraytracing_torch.ops import intersect as oi
+
+    r = walk[-1]
+    boxes = ((scene.super_min, scene.super_max) if oi._is_super(walk)
+             else (scene.cluster_min, scene.cluster_max))
+    lists, counts, entries, far = oi._cull(V3(r[0], r[1], r[2]), V3(r[3], r[4], r[5]),
+                                           r[6], *boxes)
+    return (lists.to(torch.int32), counts.to(torch.int32), entries.contiguous(),
+            torch.stack([*r[:7], far]))
+
+
+def fused_vs_list(scene, o, d, t_max, anyhit, lwalk, list_out, t_min, label,
+                  timed=True):
+    """The fused kernel of `lwalk`'s path on the same rays: bit-equal to its
+    plain version and to the list kernel's `list_out`; with `timed`, its time,
+    the list kernel's, the cull's with its conversions, and its bound."""
+    import torch
+
+    from mafrixraytracing_torch.ops import intersect as oi
+
+    fwalk, *_ = oi._prep(scene, o, d, t_min, t_max, anyhit=anyhit, fused=True)
+    check(oi._is_fused(fwalk) and oi._is_super(fwalk) == oi._is_super(lwalk),
+          "the fused operands are not those of the list walk's path")
+    check(torch.equal(fwalk[-1][:7], lwalk[-1][:7]), "the two paths' rays differ")
+    if anyhit:
+        err, occ, plain_ms = compare_anyhit(fwalk, t_min, label + ", fused",
+                                            same_as=list_out)
+        result = dict(occ=occ)
+    else:
+        err, t, _, plain_ms = compare_closest(fwalk, t_min, label + ", fused",
+                                              same_as=list_out)
+        result = dict(t_final=t)
+    if not timed:
+        return dict(max_abs_err=err)
+    k = 2 if anyhit else 0
+    fused_kernel, list_kernel = pick(fwalk)[k], pick(lwalk)[k]
+    ms_list = time_ms(lambda: list_kernel(*lwalk, t_min))
+    ms = time_ms(lambda: fused_kernel(*fwalk, t_min))
+    ms_cull = time_ms(lambda: cull_and_convert(scene, lwalk))
+    bound = walk_bound(scene, lwalk, t_min, fused_walk=fwalk, **result)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                list_kernel_ms=ms_list, cull_and_convert_ms=ms_cull, **bound)
+
+
+def print_fused(name, r, where):
+    print(f"  {name}: kernel {r['ms']:.4f} ms against cull + conversions "
+          f"{r['cull_and_convert_ms']:.4f} ms + list kernel {r['list_kernel_ms']:.4f} ms "
+          f"= {r['cull_and_convert_ms'] + r['list_kernel_ms']:.4f} ms; plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
+          f"({r['ray_cluster_pairs']} ray-cluster pairs, {r['ray_box_slabs']} "
+          f"ray-box slab tests) ({where})")
 
 
 def soup_scene(device):
@@ -492,10 +633,11 @@ def phase_kernels_mesh(torch, dev, records, cornell_idx, cornell_P):
     o, d = cs.camera.get_rays(u, v)
     walk, *_ = oi._prep(scene, o, d, t_min, 1e8, anyhit=False)
     check(oi._is_super(walk), "the mesh must take the two-level path")
-    err_c, t_k, _ = compare_closest(walk, t_min, "mesh primary")
+    err_c, t_k, i_k, ms_cp = compare_closest(walk, t_min, "mesh primary")
     ms_c = time_ms(lambda: oi.closest_super_kernel(*walk, t_min))
-    ms_cp = time_ms(lambda: oi.closest_super_reference(*walk, t_min), reps=1)
     bound_c = walk_bound(scene, walk, t_min, t_final=t_k)
+    fused_c = fused_vs_list(scene, o, d, 1e8, False, walk, (t_k, i_k), t_min,
+                            "mesh primary")
 
     # NEE-like shadow rays: from the primary hits toward points on the light
     t_hit, i_hit = oi.find_closest_soa(scene, o, d, t_min, 1e8)
@@ -511,10 +653,11 @@ def phase_kernels_mesh(torch, dev, records, cornell_idx, cornell_P):
     so = p + sd * 1e-3
     s_tmax = torch.where(hit, dist - 2e-3, 0.0)
     swalk, *_ = oi._prep(scene, so, sd, t_min, s_tmax, anyhit=True)
-    err_a, occ_k = compare_anyhit(swalk, t_min, "mesh shadow")
+    err_a, occ_k, ms_ap = compare_anyhit(swalk, t_min, "mesh shadow")
     ms_a = time_ms(lambda: oi.anyhit_super_kernel(*swalk, t_min))
-    ms_ap = time_ms(lambda: oi.anyhit_super_reference(*swalk, t_min), reps=1)
     bound_a = walk_bound(scene, swalk, t_min, occ=occ_k)
+    fused_a = fused_vs_list(scene, so, sd, s_tmax, True, swalk, occ_k, t_min,
+                            "mesh shadow")
 
     # the gather at the mesh's table size
     table = packed_attr_table(scene).contiguous()
@@ -542,9 +685,17 @@ def phase_kernels_mesh(torch, dev, records, cornell_idx, cornell_P):
     to = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     qo, qd = V3.of(to(o_np)), V3.of(to(d_np))
     walk_n, *_ = oi._prep(scene, qo, qd, t_min, to(tmax_c), anyhit=False)
-    err_cn, t_n, _ = compare_closest(walk_n, t_min, "mesh non-aligned")
+    err_cn, t_n, i_n, _ = compare_closest(walk_n, t_min, "mesh non-aligned")
     walk_na, *_ = oi._prep(scene, qo, qd, t_min, to(tmax_a), anyhit=True)
-    err_an, occ_n = compare_anyhit(walk_na, t_min, "mesh non-aligned")
+    err_an, occ_n, _ = compare_anyhit(walk_na, t_min, "mesh non-aligned")
+    fused_cn = fused_vs_list(scene, qo, qd, to(tmax_c), False, walk_n, (t_n, i_n),
+                             t_min, "mesh non-aligned")
+    fused_an = fused_vs_list(scene, qo, qd, to(tmax_a), True, walk_na, occ_n,
+                             t_min, "mesh non-aligned")
+    print_fused("fused_closest_super on incoherent tiles", fused_cn,
+                f"B = {walk_n[-1].shape[1]:,}")
+    print_fused("fused_anyhit_super on incoherent tiles", fused_an,
+                f"B = {walk_na[-1].shape[1]:,}")
     # tiles of unrelated rays: the walks' worst case, beside their bound
     for name, fn, w, b in (
             ("closest_super", oi.closest_super_kernel, walk_n,
@@ -563,6 +714,11 @@ def phase_kernels_mesh(torch, dev, records, cornell_idx, cornell_P):
                                     plain_ms=ms_cp, library_ms=None, **bound_c)
     records["anyhit_super"] = dict(max_abs_err=max(err_a, err_an), ms=ms_a,
                                    plain_ms=ms_ap, library_ms=None, **bound_a)
+    for name, r, rn in (("fused_closest_super", fused_c, fused_cn),
+                        ("fused_anyhit_super", fused_a, fused_an)):
+        r["max_abs_err"] = max(r["max_abs_err"], rn["max_abs_err"])
+        records[name] = r
+        print_fused(name, r, f"mesh, B = {B:,}")
     records["unpack"] = dict(max_abs_err=float((gk - gp).abs().max()), ms=ms_g,
                              plain_ms=ms_gp,
                              library_ms=time_library_gather(table, gidx),
@@ -598,10 +754,11 @@ def phase_kernels(torch, dev):
     v = torch.rand(B, generator=gen, device=dev)
     o, d = cs.camera.get_rays(u, v)
     walk, _, _, _, _ = oi._prep(scene, o, d, t_min, 1e8, anyhit=False)
-    err_c, t_k, idx = compare_closest(walk, t_min, "cornell primary")
+    err_c, t_k, idx, ms_cp = compare_closest(walk, t_min, "cornell primary")
     ms_c = time_ms(lambda: oi.closest_kernel(*walk, t_min))
-    ms_cp = time_ms(lambda: oi.closest_reference(*walk, t_min), reps=3)
     bound_c = walk_bound(scene, walk, t_min, t_final=t_k)
+    fused_c = fused_vs_list(scene, o, d, 1e8, False, walk, (t_k, idx), t_min,
+                            "cornell primary")
 
     # NEE-like shadow rays: from the primary hits toward points on the light
     t_hit, i_hit = oi.find_closest_soa(scene, o, d, t_min, 1e8)
@@ -615,10 +772,11 @@ def phase_kernels(torch, dev):
     so = p + sd * 1e-3
     s_tmax = torch.where(hit, dist - 2e-3, 0.0)
     swalk, _, _, _, _ = oi._prep(scene, so, sd, t_min, s_tmax, anyhit=True)
-    err_a, occ_k = compare_anyhit(swalk, t_min, "cornell shadow")
+    err_a, occ_k, ms_ap = compare_anyhit(swalk, t_min, "cornell shadow")
     ms_a = time_ms(lambda: oi.anyhit_kernel(*swalk, t_min))
-    ms_ap = time_ms(lambda: oi.anyhit_reference(*swalk, t_min), reps=3)
     bound_a = walk_bound(scene, swalk, t_min, occ=occ_k)
+    fused_a = fused_vs_list(scene, so, sd, s_tmax, True, swalk, occ_k, t_min,
+                            "cornell shadow")
 
     # gather-unpack at the main path's shape
     table = packed_attr_table(scene).contiguous()
@@ -650,18 +808,22 @@ def phase_kernels(torch, dev):
     to = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     qo, qd = V3.of(to(so_np)), V3.of(to(sd_np))
     walk_s, _, _, _, _ = oi._prep(soup, qo, qd, t_min, to(tmax_c), anyhit=False)
-    err_cs, _, idx_s = compare_closest(walk_s, t_min, "soup")
+    err_cs, t_s, idx_s, ms_csp = compare_closest(walk_s, t_min, "soup")
     walk_sa, _, _, _, _ = oi._prep(soup, qo, qd, t_min, to(tmax_a), anyhit=True)
-    err_as, _ = compare_anyhit(walk_sa, t_min, "soup")
+    err_as, occ_s, ms_asp = compare_anyhit(walk_sa, t_min, "soup")
+    fused_cs = fused_vs_list(soup, qo, qd, to(tmax_c), False, walk_s, (t_s, idx_s),
+                             t_min, "soup")
+    fused_as = fused_vs_list(soup, qo, qd, to(tmax_a), True, walk_sa, occ_s, t_min,
+                             "soup")
+    print_fused("fused_closest on the soup", fused_cs, f"B = {walk_s[-1].shape[1]:,}")
+    print_fused("fused_anyhit on the soup", fused_as, f"B = {walk_sa[-1].shape[1]:,}")
     tab_s = packed_attr_table(soup).contiguous()
     gidx_s = idx_s.long().clamp(0, tab_s.shape[0] - 1)
     check(torch.equal(ou.unpack_kernel(tab_s, gidx_s),
                       ou.fetch_cols_reference(tab_s, gidx_s)),
           "unpack kernel is not bit-exact on the soup")
     ms_cs = time_ms(lambda: oi.closest_kernel(*walk_s, t_min))
-    ms_csp = time_ms(lambda: oi.closest_reference(*walk_s, t_min), reps=2)
     ms_as = time_ms(lambda: oi.anyhit_kernel(*walk_sa, t_min))
-    ms_asp = time_ms(lambda: oi.anyhit_reference(*walk_sa, t_min), reps=2)
     print(f"  soup times (ms, kernel / plain): closest {ms_cs:.3f} / "
           f"{ms_csp:.3f}, anyhit {ms_as:.3f} / {ms_asp:.3f}")
 
@@ -675,6 +837,11 @@ def phase_kernels(torch, dev):
               f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, "
               f"{r['ray_cluster_pairs']} ray-cluster pairs needed (Cornell, "
               f"B = {B:,})")
+    for name, r, rs_ in (("fused_closest", fused_c, fused_cs),
+                         ("fused_anyhit", fused_a, fused_as)):
+        r["max_abs_err"] = max(r["max_abs_err"], rs_["max_abs_err"])
+        records[name] = r
+        print_fused(name, r, f"Cornell, B = {B:,}")
     return phase_kernels_mesh(torch, dev, records, gidx, table.shape[0])
 
 
@@ -747,7 +914,7 @@ def phase_forward(torch, dev, make_spec, label, launched, idle):
     print(f"  {SMALL}x{SMALL} x 4 spp kernels vs plain: {close:.5f} of pixels close, "
           f"mean rel diff {rel:.3g}, identical={bool(np.array_equal(a, b))}")
     check(close >= 0.995 and rel <= 1e-4, "kernel render disagrees with plain render")
-    return launches, a
+    return launches, a, img
 
 
 def phase_textured(torch, untextured):
@@ -954,6 +1121,193 @@ def phase_fit(torch, dev):
         check(flat[k] > 0, f"kernel {k} was not launched by the Cornell fit")
     return launches
 
+FLAT, TWO_LEVEL = ("closest", "anyhit"), ("closest_super", "anyhit_super")
+FUSED_FLAT = ("fused_closest", "fused_anyhit")
+FUSED_TWO_LEVEL = ("fused_closest_super", "fused_anyhit_super")
+
+
+def phase_fused(torch, list_images):
+    """The render path with the cull inside the walks: the frames of phases 3
+    and 5 again (`list_images`: their images by label), then forward +
+    backward on the mesh, each held bit for bit against the list path."""
+    from mafrixraytracing_torch import bench
+    from mafrixraytracing_torch.core import rng
+    from mafrixraytracing_torch.integrator import path as P
+    from mafrixraytracing_torch.ops import cuda
+    from mafrixraytracing_torch.scene.builtin import cornell_box
+    from mafrixraytracing_torch.scene.compiler import compile_scene
+
+    W, H = WIDTH, HEIGHT
+
+    def counted(fused, fn):
+        """(fn(), seconds, this call's launch counts) on one of the paths."""
+        with fused_cull(fused):
+            cuda.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0, dict(cuda.LAUNCHES)
+
+    def report(what, runs):
+        # runs: list, fused, fused, list
+        for name, picked in (("list", (runs[0], runs[3])), ("fused", (runs[1], runs[2]))):
+            used = {k: v for k, v in picked[0][2].items() if v}
+            print(f"  {what}, {name} path: {picked[0][1]:.3f} and {picked[1][1]:.3f} "
+                  f"s/frame, kernel launches per frame {used}")
+
+    launches = {}
+    for make_spec, label, fused_names, list_names in (
+            (cornell_box, "cornell", FUSED_FLAT, FLAT),
+            (mesh_spec, "mesh36996", FUSED_TWO_LEVEL, TWO_LEVEL)):
+        cs = compile_scene(make_spec(W, H))
+        scene, camera = cs.scene, cs.camera
+        with fused_cull():
+            config, _ = bench.calibrated_config(scene, camera, W, H, DEPTH)
+
+        def frame(seed):
+            with torch.no_grad():
+                return P.render_image(scene, camera, W, H, SPP, rng.root_key(seed),
+                                      config)
+
+        img, _, counts = counted(True, lambda: frame(0))
+        same = torch.equal(img, list_images[label])
+        print(f"  forward {label} {W}x{H} x {SPP} spp, fused: bit-equal to the list "
+              f"path's image={same}, launches {counts}")
+        check(bool(torch.isfinite(img).all()), "fused image has non-finite values")
+        check(same, f"the fused {label} frame differs from the list path's")
+        for k in fused_names + ("unpack",):
+            check(counts[k] > 0, f"kernel {k} was not launched on the fused {label} path")
+        for k in FLAT + TWO_LEVEL + tuple(set(FUSED_FLAT + FUSED_TWO_LEVEL)
+                                          - set(fused_names)):
+            check(counts[k] == 0, f"kernel {k} was launched on the fused {label} path")
+        launches.update({k: counts[k] for k in fused_names})
+        runs = [counted(f, lambda: frame(1)) for f in (False, True, True, False)]
+        check(all(torch.equal(r[0], runs[0][0]) for r in runs),
+              f"the {label} frames of the two paths differ at seed 1")
+        check(all(runs[0][2][k] > 0 for k in list_names),
+              f"the list path did not run its kernels on {label}")
+        report(f"forward {label}", runs)
+
+    # forward + backward on the mesh (still `scene`), the benchmark's path
+    runs = [counted(f, lambda: bench.fwd_bwd(scene, camera, W, H, SPP, 7, config))
+            for f in (False, True, True, False)]
+    (img_l, grads_l), (img_f, grads_f) = runs[0][0], runs[1][0]
+    same = torch.equal(img_l, img_f) and all(
+        torch.equal(a, b) for a, b in zip(grads_l, grads_f))
+    print(f"  forward + backward mesh36996: gradients and image of the fused path "
+          f"bit-equal to the list path's={same}, |grad albedo|max "
+          f"{float(grads_f[0].abs().max()):.4g}")
+    check(same, "the fused path's gradients differ from the list path's")
+    check(all(bool(torch.isfinite(g).all()) for g in grads_f)
+          and float(grads_f[0].abs().max()) > 0, "the fused path's gradients are off")
+    check(all(runs[1][2][k] > 0 for k in FUSED_TWO_LEVEL + ("unpack", "scatter")),
+          "the fused forward + backward did not run its kernels")
+    report("forward + backward mesh36996", runs)
+    return launches
+
+
+def moving_sphere_spec(width, height):
+    """A red sphere moving along x over a floor under an area light."""
+    from mafrixraytracing_torch.scene import spec as S
+
+    floor = S.make_rect_mesh((-4, 0, 4), (4, 0, 4), (4, 0, -4), (-4, 0, -4))
+    light = S.make_rect_mesh((-1, 3, -1), (1, 3, -1), (1, 3, 1), (-1, 3, 1))
+    return S.SceneSpec(
+        camera=S.CameraSpec(position=(0.0, 1.0, 4.0), direction=(0.0, -0.1, -1.0),
+                            fov=50.0, fov_convention="standard",
+                            aspect=width / height),
+        materials=[S.MaterialSpec(albedo=(0.75, 0.75, 0.75)),
+                   S.MaterialSpec(albedo=(0.9, 0.2, 0.2))],
+        shapes=[S.ShapeSpec(floor, 0)],
+        spheres=[S.SphereSpec(center=(-0.8, 0.5, 0.0), radius=0.5, material=1,
+                              velocity=(1.6, 0.0, 0.0))],
+        area_lights=[S.AreaLightSpec(light, radiance=(14.0,) * 3, visible=False)])
+
+
+def phase_entry_points(torch):
+    """Whitted with the fused search, motion blur, the native OBJ loader."""
+    import numpy as np
+
+    from mafrixraytracing_torch.core import rng
+    from mafrixraytracing_torch.film.image import write_png
+    from mafrixraytracing_torch.film.tonemap import to_bytes, tonemap
+    from mafrixraytracing_torch.integrator import path as P
+    from mafrixraytracing_torch.integrator.whitted import render_whitted
+    from mafrixraytracing_torch.io import native
+    from mafrixraytracing_torch.io.obj import load_obj
+    from mafrixraytracing_torch.ops import cuda
+    from mafrixraytracing_torch.scene.builtin import cornell_box
+    from mafrixraytracing_torch.scene.compiler import compile_scene
+
+    n = 128
+    cs = compile_scene(cornell_box(n, n))
+    with fused_cull(), torch.no_grad():
+        cuda.reset_launches()
+        a = render_whitted(cs.scene, cs.camera, n, n)
+        counts = dict(cuda.LAUNCHES)
+        b = render_whitted(cs.scene, cs.camera, n, n)
+        torch.cuda.synchronize()
+    with torch.no_grad():
+        c = render_whitted(cs.scene, cs.camera, n, n)
+    print(f"  whitted cornell {n}x{n}, fused: mean {float(a.mean()):.5f}, two renders "
+          f"bit-equal={torch.equal(a, b)}, equal to the list path's={torch.equal(a, c)}, "
+          f"launches { {k: v for k, v in counts.items() if v} }")
+    check(bool(torch.isfinite(a).all()) and 0.02 < float(a.mean()) < 1.0,
+          "the Whitted image is off")
+    check(torch.equal(a, b), "two Whitted renders differ")
+    check(torch.equal(a, c), "the fused Whitted render differs from the list path's")
+    check(counts["fused_closest"] > 0 and counts["fused_anyhit"] > 0
+          and counts["closest"] == 0 and counts["anyhit"] == 0,
+          "the Whitted render did not go through the fused kernels")
+    png = os.path.join(tempfile.gettempdir(), "mafrix_torch_whitted.png")
+    write_png(png, to_bytes(tonemap(a)).cpu().numpy())
+    print(f"  wrote {png}")
+
+    m = SMALL
+    ms = compile_scene(moving_sphere_spec(m, m))
+    check(abs(float(ms.scene.sph_velocity.abs().max()) - 1.6) < 1e-6,
+          "the velocity is lost")
+    imgs = {}
+    with torch.no_grad():
+        for blur in (False, True):
+            cfg = P.PathTracerConfig(max_depth=2, rr_enable=False, motion_blur=blur)
+            imgs[blur] = P.render_image(ms.scene, ms.camera, m, m, 16,
+                                        rng.root_key(3), cfg).cpu().numpy()
+
+    def red_columns(img):
+        return int(((img[..., 0] > img[..., 1] * 1.5) & (img[..., 0] > 0.02))
+                   .any(axis=0).sum())
+
+    cols = red_columns(imgs[False]), red_columns(imgs[True])
+    print(f"  motion blur {m}x{m} x 16 spp: columns the red sphere covers "
+          f"{cols[0]} still, {cols[1]} blurred; mean |on - off| "
+          f"{float(np.abs(imgs[True] - imgs[False]).mean()):.5f}")
+    check(all(np.isfinite(i).all() for i in imgs.values()),
+          "a motion-blur image has non-finite values")
+    check(cols[1] > cols[0] + 2, "motion blur did not spread the sphere")
+
+    path = os.path.join(tempfile.gettempdir(), "mafrix_torch_mesh36996.obj")
+    t0 = time.perf_counter()
+    check(native.available(), f"the native OBJ parser did not build: "
+                              f"{native.build_error()}")
+    t1 = time.perf_counter()
+    fast = load_obj(path, use_native=True)
+    t2 = time.perf_counter()
+    slow = load_obj(path, use_native=False)
+    t3 = time.perf_counter()
+    for k in ("vertices", "uvs", "normals", "face_v", "face_t", "face_n",
+              "face_group", "face_material"):
+        check(np.array_equal(getattr(fast, k), getattr(slow, k)),
+              f"the native parser's {k} differ from the Python parser's")
+    check(fast.group_names == slow.group_names
+          and fast.usemtl_names == slow.usemtl_names
+          and fast.face_v.shape == (MESH_FACES, 3), "the native parser's names differ")
+    print(f"  native OBJ parser: ready in {t1 - t0:.2f} s (g++ ran when the mesh was "
+          f"first loaded); {MESH_FACES} "
+          f"faces parsed in {t2 - t1:.4f} s against {t3 - t2:.4f} s in Python, "
+          f"arrays equal")
+
 
 def main() -> int:
     import torch
@@ -983,17 +1337,18 @@ def main() -> int:
     from mafrixraytracing_torch.scene.builtin import cornell_box
 
     print("[3] forward, Cornell")
-    flat, two_level = ("closest", "anyhit"), ("closest_super", "anyhit_super")
-    launches, _ = phase_forward(torch, dev, cornell_box, "cornell",
-                                launched=flat + ("unpack",), idle=two_level)
+    flat, two_level, fused = FLAT, TWO_LEVEL, FUSED_FLAT + FUSED_TWO_LEVEL
+    launches, _, cornell_img = phase_forward(torch, dev, cornell_box, "cornell",
+                                             launched=flat + ("unpack",),
+                                             idle=two_level + fused)
 
     print("[4] forward + backward, Cornell")
     phase_fwd_bwd(torch)
 
     print("[5] forward, mesh of 36,996 faces")
-    mesh_launches, small = phase_forward(torch, dev, mesh_spec, "mesh36996",
-                                         launched=two_level + ("unpack",),
-                                         idle=flat)
+    mesh_launches, small, mesh_img = phase_forward(
+        torch, dev, mesh_spec, "mesh36996", launched=two_level + ("unpack",),
+        idle=flat + fused)
     phase_textured(torch, small)
     # each kernel's count is that of the path that runs it (the gather runs
     # on both; the mesh path's count is the one recorded)
@@ -1005,7 +1360,15 @@ def main() -> int:
     print("[7] fit, mesh of 36,996 faces (and a short Cornell fit)")
     launches["scatter"] = phase_fit(torch, dev)["scatter"]
 
+    print("[8] the fused-cull search at full width")
+    launches.update(phase_fused(torch, {"cornell": cornell_img,
+                                        "mesh36996": mesh_img}))
+
+    print("[9] Whitted, motion blur, the native OBJ loader")
+    phase_entry_points(torch)
+
     pallas = "mafrixraytracing_tpu/ops/intersect_pallas.py"
+    fused_cu = "mafrixraytracing_torch/csrc/intersect_fused.cu"
     sources = {"closest": ("mafrixraytracing_torch/csrc/intersect.cu", pallas + ":356"),
                "anyhit": ("mafrixraytracing_torch/csrc/intersect.cu", pallas + ":450"),
                "unpack": ("mafrixraytracing_torch/csrc/unpack.cu",
@@ -1014,6 +1377,10 @@ def main() -> int:
                                  pallas + ":964"),
                "anyhit_super": ("mafrixraytracing_torch/csrc/intersect_super.cu",
                                 pallas + ":1028"),
+               "fused_closest": (fused_cu, pallas + ":608"),
+               "fused_anyhit": (fused_cu, pallas + ":667"),
+               "fused_closest_super": (fused_cu, pallas + ":709"),
+               "fused_anyhit_super": (fused_cu, pallas + ":769"),
                "scatter": ("mafrixraytracing_torch/csrc/scatter.cu",
                            "experiments/exp_scatter.py:52")}
     kernels = [dict(name=k, route="cuda", source=sources[k][0],

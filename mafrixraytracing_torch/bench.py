@@ -18,13 +18,17 @@ metric `seconds_per_train_step`; `detail` keeps its keys and gains the
 parameters, the losses, `rays_per_s_fwd_bwd` by the same accounting and the
 seconds it took to construct the optimizer.
 
+With `--fused` (or BENCH_FUSED=1) the searches take the fused-cull kernels
+(`ops.intersect.FUSED_CULL`: the cull inside the walk's block) instead of the
+PyTorch cull + list kernels; `detail["fused_cull"]` records the flag.
+
 Scenes: Cornell by default; `run(spec=...)` times any `SceneSpec`, and
 BENCH_OBJ=<path> builds one around an OBJ file with `scene.assets.mesh_scene`.
 Env knobs: BENCH_WIDTH/HEIGHT (256), BENCH_SPP (64), BENCH_DEPTH (5),
 BENCH_ITERS (3), BENCH_WAVEFRONT (2^19), BENCH_COMPACT (1), BENCH_HEADROOM
-(1.12), BENCH_OBJ (none), BENCH_FIT (0).
+(1.12), BENCH_OBJ (none), BENCH_FIT (0), BENCH_FUSED (0).
 
-Run: python -m mafrixraytracing_torch.bench [--fit]   (needs a CUDA device)
+Run: python -m mafrixraytracing_torch.bench [--fit] [--fused]   (needs a CUDA device)
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ import torch
 
 from mafrixraytracing_torch.core import rng
 from mafrixraytracing_torch.integrator import path as P
+from mafrixraytracing_torch.ops import intersect as ops_isect
 from mafrixraytracing_torch.scene.builtin import cornell_box
 from mafrixraytracing_torch.scene.compiler import compile_scene
 
@@ -129,6 +134,7 @@ def _setup(width, height, depth, spec, scene_name):
         "depth": depth,
         "queries_per_spp": queries_per_spp,
         "backend": "cuda",
+        "fused_cull": bool(ops_isect.FUSED_CULL),
         "device": info["name"],
         "power_limit": info["power_limit"],
         "compact": list(config.compact),
@@ -216,10 +222,18 @@ def spec_from_env(width, height):
     return mesh_scene(obj, width, height), os.path.basename(obj)
 
 
+def fused_from_args(argv) -> bool:
+    """Set `ops.intersect.FUSED_CULL` from `--fused` / BENCH_FUSED=1."""
+    fused = "--fused" in argv or os.environ.get("BENCH_FUSED") == "1"
+    ops_isect.FUSED_CULL = fused
+    return fused
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("bench: no CUDA device", file=sys.stderr)
         return 1
+    fused_from_args(sys.argv[1:])
     width = int(os.environ.get("BENCH_WIDTH", 256))
     height = int(os.environ.get("BENCH_HEIGHT", 256))
     spec, name = spec_from_env(width, height)

@@ -30,6 +30,11 @@
 //
 // The walk decides ties as the Pallas kernel documents: among equal t the
 // smallest triangle index wins, across clusters as well as inside one.
+//
+// The walks' bodies are the __device__ functions walk_closest and walk_anyhit
+// of intersect_common.cuh, which the fused-cull kernels (intersect_fused.cu)
+// run on a list in shared memory; here the list is the PyTorch cull's, in
+// global memory.
 
 #include "intersect_common.cuh"
 
@@ -40,35 +45,14 @@ __global__ void __launch_bounds__(TILE) closest_kernel(
     const int* __restrict__ counts, const float* __restrict__ entries,
     const float* __restrict__ rays, int B, int C, float t_min,
     float* __restrict__ t_out, int* __restrict__ i_out) {
-  __shared__ __align__(16) float s_tri[COMP * CLUSTER];
-  __shared__ float s_red[TILE / 32];
+  __shared__ WalkSmem sm;
   const int tile = blockIdx.x;
   const int r = tile * TILE + threadIdx.x;
   const Ray q = load_ray(rays, B, r);
-  const int n = counts[tile];
-  const int* list = lists + (size_t)tile * C;
-  const float* entry = entries + (size_t)tile * C;
-
   float best_t = q.tmax;
   int best_i = -1;
-  for (int k = 0; k < n; ++k) {
-    // a later cluster can only help a ray whose limit min(best, far) lies at
-    // or beyond its entry; inclusive, or flat clusters are skipped
-    const float worst = block_max(fminf(best_t, q.far), s_red);
-    if (!(entry[k] <= worst)) break;
-    const int c = list[k];
-    stage_cluster(s_tri, tri, c);
-    __syncthreads();
-    const int base = c * CLUSTER;
-    for (int j = 0; j < CLUSTER; ++j) {
-      float t;
-      if (tri_test(s_tri, j, q, t) && t > t_min &&
-          (t < best_t || (t == best_t && base + j < best_i))) {
-        best_t = t;
-        best_i = base + j;
-      }
-    }
-  }
+  walk_closest(tri, lists + (size_t)tile * C, entries + (size_t)tile * C, counts[tile], q,
+               t_min, sm, best_t, best_i);
   const bool hit = best_t < q.tmax;
   t_out[r] = best_t;
   i_out[r] = hit ? best_i : -1;
@@ -79,34 +63,12 @@ __global__ void __launch_bounds__(TILE) anyhit_kernel(
     const int* __restrict__ counts, const float* __restrict__ entries,
     const float* __restrict__ rays, int B, int C, float t_min,
     uint8_t* __restrict__ occ_out) {
-  __shared__ __align__(16) float s_tri[COMP * CLUSTER];
+  __shared__ WalkSmem sm;
   const int tile = blockIdx.x;
   const int r = tile * TILE + threadIdx.x;
   const Ray q = load_ray(rays, B, r);
-  const int n = counts[tile];
-  const int* list = lists + (size_t)tile * C;
-  const float* entry = entries + (size_t)tile * C;
-  const bool dead = q.tmax <= t_min;
-
-  bool blocked = false;
-  for (int k = 0; k < n; ++k) {
-    // a ray is resolved once blocked, dead, or past its last cluster's exit;
-    // the barrier also fences the staged cluster between iterations
-    const bool resolved = blocked || dead || (q.far < entry[k]);
-    if (__syncthreads_and(resolved)) break;
-    const int c = list[k];
-    stage_cluster(s_tri, tri, c);
-    __syncthreads();
-    if (!blocked) {
-      for (int j = 0; j < CLUSTER; ++j) {
-        float t;
-        if (tri_test(s_tri, j, q, t) && t > t_min && t < q.tmax) {
-          blocked = true;
-          break;
-        }
-      }
-    }
-  }
+  const bool blocked = walk_anyhit(tri, lists + (size_t)tile * C, entries + (size_t)tile * C,
+                                   counts[tile], q, t_min, sm);
   occ_out[r] = blocked ? 1 : 0;
 }
 

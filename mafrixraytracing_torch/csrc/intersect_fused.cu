@@ -1,0 +1,248 @@
+// Fused-cull closest-hit and any-hit searches, flat and two-level, for Hopper
+// (sm_90a): the cull of ops/intersect.py::_cull inside the walk's block.
+//
+// Replaces the Pallas TPU kernels
+//   mafrixraytracing_tpu/ops/intersect_pallas.py::_fused_closest_kernel       (:608)
+//   mafrixraytracing_tpu/ops/intersect_pallas.py::_fused_anyhit_kernel        (:667)
+//   mafrixraytracing_tpu/ops/intersect_pallas.py::_fused_closest_super_kernel (:709)
+//   mafrixraytracing_tpu/ops/intersect_pallas.py::_fused_anyhit_super_kernel  (:769)
+// with the same contract: per 128-ray tile, slab-test the rays against at
+// most 128 boxes (clusters on the flat path, superclusters on the two-level
+// path; `pack_aabbs`, (8, 128): min xyz, max xyz, live, pad), take each box's
+// smallest entry distance over the tile and each ray's `far` (the exit of
+// its last surviving box, capped at tmax), order the surviving boxes front to
+// back, and walk that list as kernels A, B, D and E walk the list the
+// PyTorch cull hands them.
+//
+// Why. The PyTorch cull is a chain of some 25 elementwise operations over
+// dense (B, C) temporaries in device memory, a sort and two conversions per
+// query; here the same work stays in shared memory and registers, and the
+// query is one launch.
+//
+// Layout. One block per tile, one thread per ray (`tile_cull`):
+//   1. The block stages the 7 x n box rows in shared memory (3.5 KB).
+//   2. Each thread slab-tests its own ray against the n boxes (shared-memory
+//      broadcasts) in the arithmetic of `_cull`: the IEEE reciprocal of
+//      `safe_inverse`, separate subtract and multiply, the live row masking
+//      the +-3e38 sentinels of empty boxes. It keeps its own `far` in a
+//      register. Entries are >= +0 (a -0 is made +0), so their bit patterns
+//      order as unsigned integers: the tile's minimum of a box's entry is a
+//      warp `__reduce_min_sync` and one shared-memory `atomicMin` a warp,
+//      exact and independent of the order in which warps arrive.
+//   3. One thread a slot ranks the 128 (entry, id) pairs: a slot's place is
+//      the number of pairs below it, ties by id (what the stable sort of
+//      `_cull` gives). 128 broadcast reads a thread and one barrier; no
+//      sorting network, since any thread can read any slot here. The count
+//      is the number of entries below BIG.
+//   4. The walk of intersect_common.cuh runs on the shared-memory list, so
+//      hits, ties and early exits are the list path's by construction.
+// The lists equal `_cull`'s, so each kernel agrees bit for bit with the list
+// kernel fed by `_cull`, and with its plain version. A ray with a NaN in its
+// origin passes no box (in `_cull` the NaN poisons entry and exit); a
+// dead or padded ray (tmax 0) passes none either; a tile of such rays has
+// count 0 and walks nothing.
+//
+// What bounds it on the H100. Operations, as the list walks: the slab tests
+// add 128 rays x n boxes x ~27 fp32 operations a tile, about the cost of one
+// cluster visit (128 x 128 tests of ~30) at n = 128. Bytes: a tile reads its
+// rays (3.5 KB), the box table (L2-resident) and 6 KB per visited cluster,
+// and writes 8 or 1 bytes a ray. 11.7 KB of static shared memory at most.
+//
+// `tile_cull` is a __device__ function of its own so that a stand-alone cull
+// kernel (the experiments' `_cull_kernel`) is a thin __global__ around it.
+
+#include "intersect_common.cuh"
+
+namespace {
+
+constexpr int CP = 128;          // box slots of the packed table (pack_aabbs)
+constexpr int AABB_ROWS = 7;     // rows the kernels read: min xyz, max xyz, live
+
+struct CullSmem {
+  float box[AABB_ROWS * CP];     // the staged box table
+  unsigned key[CP];              // tile-min entry per box, as bits
+  int list[CP];                  // box ids, front to back
+  float entry[CP];               // their entries, ascending
+};
+
+// Rays of the fused kernels: rows 0-6 of (8, B) = [ox oy oz dx dy dz tmax];
+// row 7 (the list kernels' `far`) is not read: the cull computes it.
+__device__ __forceinline__ Ray load_ray_nofar(const float* __restrict__ rays, int B, int r) {
+  Ray q;
+  q.ox = rays[0 * (size_t)B + r];
+  q.oy = rays[1 * (size_t)B + r];
+  q.oz = rays[2 * (size_t)B + r];
+  q.dx = rays[3 * (size_t)B + r];
+  q.dy = rays[4 * (size_t)B + r];
+  q.dz = rays[5 * (size_t)B + r];
+  q.tmax = rays[6 * (size_t)B + r];
+  q.far = -BIG;
+  return q;
+}
+
+// The block-wide cull of one tile against the first n (<= CP) boxes of the
+// packed (8, CP) table. Every thread of the block calls it with its own ray.
+// Sets q.far; leaves the ordered list in cs.list / cs.entry (all CP slots,
+// survivors first) and returns the number of survivors. Ends with a barrier,
+// so the list may be read at once.
+__device__ __forceinline__ int tile_cull(const float* __restrict__ aabbs, int n, Ray& q,
+                                         CullSmem& cs) {
+  const int tid = threadIdx.x;
+  for (int j = tid; j < AABB_ROWS * CP; j += TILE) cs.box[j] = aabbs[j];
+  cs.key[tid] = __float_as_uint(BIG);
+  __syncthreads();
+
+  const float ix = safe_inverse(q.dx), iy = safe_inverse(q.dy), iz = safe_inverse(q.dz);
+  // in `_cull` a NaN in the origin poisons tn and tf and fails every
+  // comparison, where fmaxf and fminf would drop it (a NaN in the direction
+  // never gets that far: safe_inverse takes it for -1e-12, there as here)
+  const bool sane = (q.ox == q.ox) && (q.oy == q.oy) && (q.oz == q.oz);
+  float far = -BIG;
+  for (int j = 0; j < n; ++j) {
+    const float x0 = (cs.box[0 * CP + j] - q.ox) * ix, x1 = (cs.box[3 * CP + j] - q.ox) * ix;
+    const float y0 = (cs.box[1 * CP + j] - q.oy) * iy, y1 = (cs.box[4 * CP + j] - q.oy) * iy;
+    const float z0 = (cs.box[2 * CP + j] - q.oz) * iz, z1 = (cs.box[5 * CP + j] - q.oz) * iz;
+    const float tn = fmaxf(fmaxf(fmaxf(-BIG, fminf(x0, x1)), fminf(y0, y1)), fminf(z0, z1));
+    const float tf = fminf(fminf(fminf(BIG, fmaxf(x0, x1)), fmaxf(y0, y1)), fmaxf(z0, z1));
+    const bool live = cs.box[6 * CP + j] > 0.5f;
+    const bool hit = sane && live && (tn <= tf) && (tf > 0.0f) && (tn < q.tmax);
+    // clamp at +0: a -0 entry would order last as an unsigned integer
+    const float e = hit ? (tn > 0.0f ? tn : 0.0f) : BIG;
+    if (hit) far = fmaxf(far, tf);
+    const unsigned m = __reduce_min_sync(0xffffffffu, __float_as_uint(e));
+    if ((tid & 31) == 0) atomicMin(&cs.key[j], m);
+  }
+  q.far = (q.tmax == q.tmax) ? fminf(far, q.tmax) : q.tmax;
+  __syncthreads();
+
+  // rank of slot tid among the CP (entry, id) pairs
+  const unsigned mine = cs.key[tid];
+  int rank = 0;
+  for (int j = 0; j < CP; ++j) {
+    const unsigned other = cs.key[j];
+    rank += (other < mine || (other == mine && j < tid)) ? 1 : 0;
+  }
+  cs.list[rank] = tid;
+  cs.entry[rank] = __uint_as_float(mine);
+  return __syncthreads_count(mine < __float_as_uint(BIG));
+}
+
+__global__ void __launch_bounds__(TILE) fused_closest_kernel(
+    const float* __restrict__ tri, const float* __restrict__ aabbs,
+    const float* __restrict__ rays, int B, int n_box, float t_min,
+    float* __restrict__ t_out, int* __restrict__ i_out) {
+  __shared__ WalkSmem sm;
+  __shared__ CullSmem cs;
+  const int r = blockIdx.x * TILE + threadIdx.x;
+  Ray q = load_ray_nofar(rays, B, r);
+  const int n = tile_cull(aabbs, n_box, q, cs);
+  float best_t = q.tmax;
+  int best_i = -1;
+  walk_closest(tri, cs.list, cs.entry, n, q, t_min, sm, best_t, best_i);
+  const bool hit = best_t < q.tmax;
+  t_out[r] = best_t;
+  i_out[r] = hit ? best_i : -1;
+}
+
+__global__ void __launch_bounds__(TILE) fused_anyhit_kernel(
+    const float* __restrict__ tri, const float* __restrict__ aabbs,
+    const float* __restrict__ rays, int B, int n_box, float t_min,
+    uint8_t* __restrict__ occ_out) {
+  __shared__ WalkSmem sm;
+  __shared__ CullSmem cs;
+  const int r = blockIdx.x * TILE + threadIdx.x;
+  Ray q = load_ray_nofar(rays, B, r);
+  const int n = tile_cull(aabbs, n_box, q, cs);
+  occ_out[r] = walk_anyhit(tri, cs.list, cs.entry, n, q, t_min, sm) ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(TILE) fused_closest_super_kernel(
+    const float* __restrict__ tri, const float* __restrict__ bounds,
+    const float* __restrict__ aabbs, const float* __restrict__ rays, int B, int n_box,
+    float t_min, float refine_rel, float refine_abs, float* __restrict__ t_out,
+    int* __restrict__ i_out) {
+  __shared__ WalkSmem sm;
+  __shared__ SuperSmem ss;
+  __shared__ CullSmem cs;
+  const int r = blockIdx.x * TILE + threadIdx.x;
+  Ray q = load_ray_nofar(rays, B, r);
+  const int n = tile_cull(aabbs, n_box, q, cs);
+  float best_t = q.tmax;
+  int best_i = -1;
+  walk_closest_super(tri, bounds, cs.list, cs.entry, n, q, t_min, refine_rel, refine_abs, sm,
+                     ss, best_t, best_i);
+  const bool hit = best_t < q.tmax;
+  t_out[r] = best_t;
+  i_out[r] = hit ? best_i : -1;
+}
+
+__global__ void __launch_bounds__(TILE) fused_anyhit_super_kernel(
+    const float* __restrict__ tri, const float* __restrict__ bounds,
+    const float* __restrict__ aabbs, const float* __restrict__ rays, int B, int n_box,
+    float t_min, float refine_rel, float refine_abs, uint8_t* __restrict__ occ_out) {
+  __shared__ WalkSmem sm;
+  __shared__ SuperSmem ss;
+  __shared__ CullSmem cs;
+  const int r = blockIdx.x * TILE + threadIdx.x;
+  Ray q = load_ray_nofar(rays, B, r);
+  const int n = tile_cull(aabbs, n_box, q, cs);
+  occ_out[r] =
+      walk_anyhit_super(tri, bounds, cs.list, cs.entry, n, q, t_min, refine_rel, refine_abs,
+                        sm, ss)
+          ? 1 : 0;
+}
+
+}  // namespace
+
+// C entry points, bound with ctypes. B is a multiple of TILE; tri is
+// (C, 12, 128); aabbs (8, 128) as `pack_aabbs` makes it, of which the first
+// n_box <= 128 columns are boxes (clusters: n_box = C; superclusters: n_box =
+// S with C <= S * 16 and bounds (S, 7, 16)); rays (8, B) = [ox oy oz dx dy dz
+// tmax -], the last row unread. Each returns cudaGetLastError().
+extern "C" int mfx_fused_closest(const float* tri, const float* aabbs, const float* rays,
+                                 int B, int n_box, float t_min, float* t_out, int* i_out,
+                                 cudaStream_t stream) {
+  const int tiles = B / TILE;
+  if (n_box < 0 || n_box > CP) return (int)cudaErrorInvalidValue;
+  if (tiles > 0)
+    fused_closest_kernel<<<tiles, TILE, 0, stream>>>(tri, aabbs, rays, B, n_box, t_min, t_out,
+                                                      i_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mfx_fused_anyhit(const float* tri, const float* aabbs, const float* rays,
+                                int B, int n_box, float t_min, uint8_t* occ_out,
+                                cudaStream_t stream) {
+  const int tiles = B / TILE;
+  if (n_box < 0 || n_box > CP) return (int)cudaErrorInvalidValue;
+  if (tiles > 0)
+    fused_anyhit_kernel<<<tiles, TILE, 0, stream>>>(tri, aabbs, rays, B, n_box, t_min,
+                                                     occ_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mfx_fused_closest_super(const float* tri, const float* bounds,
+                                       const float* aabbs, const float* rays, int B, int C,
+                                       int n_box, float t_min, float refine_rel,
+                                       float refine_abs, float* t_out, int* i_out,
+                                       cudaStream_t stream) {
+  const int tiles = B / TILE;
+  if (n_box < 0 || n_box > CP || C > n_box * SUPER) return (int)cudaErrorInvalidValue;
+  if (tiles > 0)
+    fused_closest_super_kernel<<<tiles, TILE, 0, stream>>>(
+        tri, bounds, aabbs, rays, B, n_box, t_min, refine_rel, refine_abs, t_out, i_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mfx_fused_anyhit_super(const float* tri, const float* bounds,
+                                      const float* aabbs, const float* rays, int B, int C,
+                                      int n_box, float t_min, float refine_rel,
+                                      float refine_abs, uint8_t* occ_out,
+                                      cudaStream_t stream) {
+  const int tiles = B / TILE;
+  if (n_box < 0 || n_box > CP || C > n_box * SUPER) return (int)cudaErrorInvalidValue;
+  if (tiles > 0)
+    fused_anyhit_super_kernel<<<tiles, TILE, 0, stream>>>(
+        tri, bounds, aabbs, rays, B, n_box, t_min, refine_rel, refine_abs, occ_out);
+  return (int)cudaGetLastError();
+}

@@ -44,54 +44,14 @@
 //
 // Numerics and ties as in intersect.cu: no fast math, --fmad=false, among
 // equal t the smallest triangle index wins across clusters.
+//
+// The walks' bodies are the __device__ functions walk_closest_super and
+// walk_anyhit_super of intersect_common.cuh (with stage_bounds, refine and
+// block_or), shared with the fused-cull kernels of intersect_fused.cu.
 
 #include "intersect_common.cuh"
 
 namespace {
-
-constexpr int SUPER = 16;        // child clusters per supercluster
-constexpr int BOUNDS_ROWS = 7;   // min xyz, max xyz, live
-constexpr float BIG = 1e30f;
-
-__device__ __forceinline__ float safe_inverse(float d) {
-  const float safe = fabsf(d) > 1e-12f ? d : (d >= 0.0f ? 1e-12f : -1e-12f);
-  return 1.0f / safe;
-}
-
-// Stage supercluster s's (7, 16) child bounds into shared memory.
-__device__ __forceinline__ void stage_bounds(float* s_b, const float* __restrict__ bounds,
-                                             int s) {
-  const float* src = bounds + (size_t)s * BOUNDS_ROWS * SUPER;
-  if (threadIdx.x < BOUNDS_ROWS * SUPER) s_b[threadIdx.x] = src[threadIdx.x];
-}
-
-// 16-bit mask of the staged children this ray can meet within `limit`.
-__device__ __forceinline__ unsigned refine(const float* s_b, const Ray& q, float ix,
-                                           float iy, float iz, float limit,
-                                           float refine_rel, float refine_abs) {
-  const float lim = limit + (refine_rel * limit + refine_abs);
-  unsigned mask = 0;
-#pragma unroll
-  for (int j = 0; j < SUPER; ++j) {
-    const float x0 = (s_b[0 * SUPER + j] - q.ox) * ix, x1 = (s_b[3 * SUPER + j] - q.ox) * ix;
-    const float y0 = (s_b[1 * SUPER + j] - q.oy) * iy, y1 = (s_b[4 * SUPER + j] - q.oy) * iy;
-    const float z0 = (s_b[2 * SUPER + j] - q.oz) * iz, z1 = (s_b[5 * SUPER + j] - q.oz) * iz;
-    const float tn = fmaxf(fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)), fminf(z0, z1)), -BIG);
-    const float tf = fminf(fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)), fmaxf(z0, z1)), BIG);
-    const bool live = s_b[6 * SUPER + j] > 0.5f;
-    if (live && tn <= tf + (refine_rel * fabsf(tf) + refine_abs) && tf > 0.0f && tn <= lim)
-      mask |= 1u << j;
-  }
-  return mask;
-}
-
-// OR over the block's 128 threads; ends with every thread holding it.
-__device__ __forceinline__ unsigned block_or(unsigned m, unsigned* s_or) {
-  m = __reduce_or_sync(0xffffffffu, m);
-  if ((threadIdx.x & 31) == 0) s_or[threadIdx.x >> 5] = m;
-  __syncthreads();
-  return s_or[0] | s_or[1] | s_or[2] | s_or[3];
-}
 
 __global__ void __launch_bounds__(TILE) closest_super_kernel(
     const float* __restrict__ tri, const float* __restrict__ bounds,
@@ -99,52 +59,15 @@ __global__ void __launch_bounds__(TILE) closest_super_kernel(
     const float* __restrict__ entries, const float* __restrict__ rays, int B, int S,
     float t_min, float refine_rel, float refine_abs, float* __restrict__ t_out,
     int* __restrict__ i_out) {
-  __shared__ __align__(16) float s_tri[COMP * CLUSTER];
-  __shared__ float s_b[BOUNDS_ROWS * SUPER];
-  __shared__ float s_red[TILE / 32];
-  __shared__ unsigned s_or[TILE / 32];
+  __shared__ WalkSmem sm;
+  __shared__ SuperSmem ss;
   const int tile = blockIdx.x;
   const int r = tile * TILE + threadIdx.x;
   const Ray q = load_ray(rays, B, r);
-  const float ix = safe_inverse(q.dx), iy = safe_inverse(q.dy), iz = safe_inverse(q.dz);
-  const int n = counts[tile];
-  const int* list = lists + (size_t)tile * S;
-  const float* entry = entries + (size_t)tile * S;
-  const bool dead = q.tmax <= t_min;
-
   float best_t = q.tmax;
   int best_i = -1;
-  for (int k = 0; k < n; ++k) {
-    // early exit between superclusters as the flat walk's, inclusive; the
-    // reduction's barriers fence s_b, s_or and s_tri from the last iteration
-    const float worst = block_max(fminf(best_t, q.far), s_red);
-    if (!(entry[k] <= worst)) break;
-    const int s = list[k];
-    stage_bounds(s_b, bounds, s);
-    __syncthreads();
-    // a dead ray (tmax <= t_min) asks for no child at all
-    const unsigned mine = dead ? 0u : refine(s_b, q, ix, iy, iz, best_t, refine_rel, refine_abs);
-    unsigned todo = block_or(mine, s_or);
-    while (todo) {
-      const int j = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const int c = s * SUPER + j;
-      __syncthreads();  // the last child's tests are done with s_tri
-      stage_cluster(s_tri, tri, c);
-      __syncthreads();
-      if ((mine >> j) & 1u) {
-        const int base = c * CLUSTER;
-        for (int i = 0; i < CLUSTER; ++i) {
-          float t;
-          if (tri_test(s_tri, i, q, t) && t > t_min &&
-              (t < best_t || (t == best_t && base + i < best_i))) {
-            best_t = t;
-            best_i = base + i;
-          }
-        }
-      }
-    }
-  }
+  walk_closest_super(tri, bounds, lists + (size_t)tile * S, entries + (size_t)tile * S,
+                     counts[tile], q, t_min, refine_rel, refine_abs, sm, ss, best_t, best_i);
   const bool hit = best_t < q.tmax;
   t_out[r] = best_t;
   i_out[r] = hit ? best_i : -1;
@@ -155,49 +78,14 @@ __global__ void __launch_bounds__(TILE) anyhit_super_kernel(
     const int* __restrict__ lists, const int* __restrict__ counts,
     const float* __restrict__ entries, const float* __restrict__ rays, int B, int S,
     float t_min, float refine_rel, float refine_abs, uint8_t* __restrict__ occ_out) {
-  __shared__ __align__(16) float s_tri[COMP * CLUSTER];
-  __shared__ float s_b[BOUNDS_ROWS * SUPER];
-  __shared__ unsigned s_or[TILE / 32];
+  __shared__ WalkSmem sm;
+  __shared__ SuperSmem ss;
   const int tile = blockIdx.x;
   const int r = tile * TILE + threadIdx.x;
   const Ray q = load_ray(rays, B, r);
-  const float ix = safe_inverse(q.dx), iy = safe_inverse(q.dy), iz = safe_inverse(q.dz);
-  const int n = counts[tile];
-  const int* list = lists + (size_t)tile * S;
-  const float* entry = entries + (size_t)tile * S;
-  const bool dead = q.tmax <= t_min;
-
-  bool blocked = false;
-  for (int k = 0; k < n; ++k) {
-    // resolved as in the flat any-hit walk; the vote's barrier fences s_b,
-    // s_or and s_tri from the last iteration
-    const bool resolved = blocked || dead || (q.far < entry[k]);
-    if (__syncthreads_and(resolved)) break;
-    const int s = list[k];
-    stage_bounds(s_b, bounds, s);
-    __syncthreads();
-    // blocked and dead rays ask for no child at all
-    const unsigned mine =
-        (blocked || dead) ? 0u : refine(s_b, q, ix, iy, iz, q.tmax, refine_rel, refine_abs);
-    unsigned todo = block_or(mine, s_or);
-    while (todo) {
-      const int j = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const int c = s * SUPER + j;
-      __syncthreads();  // the last child's tests are done with s_tri
-      stage_cluster(s_tri, tri, c);
-      __syncthreads();
-      if (!blocked && ((mine >> j) & 1u)) {
-        for (int i = 0; i < CLUSTER; ++i) {
-          float t;
-          if (tri_test(s_tri, i, q, t) && t > t_min && t < q.tmax) {
-            blocked = true;
-            break;
-          }
-        }
-      }
-    }
-  }
+  const bool blocked =
+      walk_anyhit_super(tri, bounds, lists + (size_t)tile * S, entries + (size_t)tile * S,
+                        counts[tile], q, t_min, refine_rel, refine_abs, sm, ss);
   occ_out[r] = blocked ? 1 : 0;
 }
 

@@ -49,15 +49,23 @@ def tri_hit_terms(o: V3, d: V3, v0: V3, e1: V3, e2: V3):
     return t, u, v, det
 
 
-def closest_sphere_soa(scene, o: V3, d: V3, t_min, t_max):
+def closest_sphere_soa(scene, o: V3, d: V3, t_min, t_max, times=None):
     """Nearest sphere hit in (t_min, t_max) per ray -> (t (B,), BIG on a
     miss; sphere index (B,) int64). Assumes unit directions (reference
-    `Sphere.fs:23-24`). `t_max` is a (B,) tensor."""
+    `Sphere.fs:23-24`). `t_max` is a (B,) tensor. `times` (B,) shifts each
+    sphere's centre by time * velocity (the reference's `MovingSphere`,
+    `RenderTest/Sample/RayTracing.fs:210-253`)."""
     c = scene.sph_center
     r = scene.sph_radius[None, :]
-    ocx = o.x[:, None] - c[None, :, 0]
-    ocy = o.y[:, None] - c[None, :, 1]
-    ocz = o.z[:, None] - c[None, :, 2]
+    cx, cy, cz = c[None, :, 0], c[None, :, 1], c[None, :, 2]
+    if times is not None:
+        tb = times[:, None]
+        cx = cx + scene.sph_velocity[None, :, 0] * tb
+        cy = cy + scene.sph_velocity[None, :, 1] * tb
+        cz = cz + scene.sph_velocity[None, :, 2] * tb
+    ocx = o.x[:, None] - cx
+    ocy = o.y[:, None] - cy
+    ocz = o.z[:, None] - cz
     dx, dy, dz = d.x[:, None], d.y[:, None], d.z[:, None]
     b = ocx * dx + ocy * dy + ocz * dz
     cc = ocx * ocx + ocy * ocy + ocz * ocz - r * r
@@ -79,10 +87,12 @@ def closest_sphere_soa(scene, o: V3, d: V3, t_min, t_max):
 
 
 @torch.no_grad()
-def find_closest(scene, o: V3, d: V3, t_min: float, t_max, chunk: int = 1024):
+def find_closest(scene, o: V3, d: V3, t_min: float, t_max, chunk: int = 1024,
+                 times=None):
     """Brute-force closest hit over every triangle (chunks of `chunk`) and
     every sphere -> (t, idx) with the `ops.intersect.find_closest_soa`
-    contract: idx triangle [0, T), sphere T + s, -1 on a miss."""
+    contract: idx triangle [0, T), sphere T + s, -1 on a miss; `times` (B,)
+    moves the spheres."""
     B = o.x.shape[0]
     T = scene.tri_v0.shape[0]
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.x.device).expand(B)
@@ -106,17 +116,18 @@ def find_closest(scene, o: V3, d: V3, t_min: float, t_max, chunk: int = 1024):
         best_t = torch.where(better, cand_t, best_t)
         best_i = torch.where(better, cand_i, best_i)
     if scene.num_live_spheres > 0:
-        st, si = closest_sphere_soa(scene, o, d, t_min, t_max)
+        st, si = closest_sphere_soa(scene, o, d, t_min, t_max, times=times)
         use_sphere = st < best_t
         best_t = torch.where(use_sphere, st, best_t)
         best_i = torch.where(use_sphere, T + si, best_i)
     return best_t, torch.where(best_t < BIG, best_i, -1)
 
 
-def occluded(scene, o: V3, d: V3, t_min: float, t_max, chunk: int = 1024):
+def occluded(scene, o: V3, d: V3, t_min: float, t_max, chunk: int = 1024,
+             times=None):
     """Brute-force any-hit in (t_min, t_max) (reference shadow test
     `Core/Integrator/Integrators.fs:44`)."""
-    return find_closest(scene, o, d, t_min, t_max, chunk)[1] >= 0
+    return find_closest(scene, o, d, t_min, t_max, chunk, times=times)[1] >= 0
 
 
 def packed_attr_table(scene) -> torch.Tensor:
@@ -164,13 +175,15 @@ def packed_attr_table(scene) -> torch.Tensor:
 
 
 def hit_attributes_soa(scene, o: V3, d: V3, prim_idx: torch.Tensor,
-                       t_hint: torch.Tensor, packed=None):
+                       t_hint: torch.Tensor, packed=None, times=None):
     """Differentiable attribute + shading recompute for the selected
     primitives -> (HitS, ShadingS). One packed row fetch per ray
     (`ops.unpack.fetch_cols`), then Moller-Trumbore / the sphere quadratic on
     the fetched columns. `t_hint` (the detached search result) picks the
     sphere root. A textured material's albedo is modulated by its atlas page
-    at the hit's uv."""
+    at the hit's uv. `times` (B,) shifts a sphere's centre by time * velocity
+    (columns 6:9 of its row), so that a moving sphere shades with points and
+    normals on its surface at the ray's time, as the search found it."""
     from mafrixraytracing_torch.ops.unpack import fetch_cols
 
     T = scene.tri_v0.shape[0]
@@ -198,6 +211,8 @@ def hit_attributes_soa(scene, o: V3, d: V3, prim_idx: torch.Tensor,
     has_sph = scene.num_live_spheres > 0
     if has_sph:
         c = vec(0)
+        if times is not None:
+            c = c + vec(6) * times
         r = col(3)
         oc = o - c
         b = v3.dot(oc, d)

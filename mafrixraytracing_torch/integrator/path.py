@@ -65,6 +65,8 @@ class PathTracerConfig:
     compact: tuple = ()         # fraction of the initial wavefront kept at
                                 # each bounce (len == max_depth, first 1.0);
                                 # () = no compaction
+    motion_blur: bool = False   # sample a shutter time per camera ray and
+                                # intersect moving spheres at that time
 
 
 class PathState(NamedTuple):
@@ -76,6 +78,8 @@ class PathState(NamedTuple):
     alive: torch.Tensor
     specular: torch.Tensor      # previous bounce was a delta lobe
     keys: torch.Tensor          # (B, 2) per-path RNG keys
+    times: torch.Tensor         # shutter time of the path's camera ray
+                                # (zeros without motion blur)
 
 
 def _take(state: PathState, perm: torch.Tensor, n: int) -> PathState:
@@ -84,7 +88,7 @@ def _take(state: PathState, perm: torch.Tensor, n: int) -> PathState:
     g = lambda c: c.index_select(0, p)  # noqa: E731
     return PathState(state.o.map(g), state.d.map(g), state.thr.map(g),
                      state.rad.map(g), g(state.prev_pdf), g(state.alive),
-                     g(state.specular), g(state.keys))
+                     g(state.specular), g(state.keys), g(state.times))
 
 
 def _bounce(scene, state: PathState, bounce: int, config: PathTracerConfig,
@@ -94,14 +98,20 @@ def _bounce(scene, state: PathState, bounce: int, config: PathTracerConfig,
     o, d, thr, rad = state.o, state.d, state.thr, state.rad
     alive, prev_pdf, prev_specular = state.alive, state.prev_pdf, state.specular
     bkey = rng.bounce_key(state.keys, bounce)
+    # secondary rays inherit their camera ray's shutter time
+    times = state.times if config.motion_blur else None
 
     def occluded_fn(so, sd, t_min, t_max):
-        return dispatch.occluded_soa(scene, so, sd, t_min, t_max)
+        # NEE batches one shadow ray per light row: the origins are tiled
+        reps = so.x.shape[0] // o.x.shape[0]
+        return dispatch.occluded_soa(
+            scene, so, sd, t_min, t_max,
+            times=None if times is None else times.repeat(reps))
 
     # dead lanes get t_max = 0: the cull then drops every cluster for them
     t_max = torch.where(alive, 1e8, 0.0)
     hit, sh = dispatch.intersect_shade_soa(scene, o, d, config.t_min, t_max,
-                                           packed=packed)
+                                           packed=packed, times=times)
     zero_c = torch.zeros_like(hit.t)
     zero = V3(zero_c, zero_c, zero_c)
 
@@ -142,7 +152,7 @@ def _bounce(scene, state: PathState, bounce: int, config: PathTracerConfig,
             L.nee_area_soa(scene, hit, bkey, occluded_fn, config.mis, sh, wo=wo)
             + L.nee_point_soa(scene, hit, occluded_fn, sh, wo=wo)
             + L.nee_sphere_soa(scene, hit, bkey, occluded_fn, sh,
-                               mis=config.mis, wo=wo)
+                               mis=config.mis, wo=wo, times=times)
         )
         rad = rad + v3.where(alive, thr * direct, zero)
 
@@ -163,7 +173,8 @@ def _bounce(scene, state: PathState, bounce: int, config: PathTracerConfig,
         alive = alive & (u < p)
 
     thr = v3.where(alive, thr, zero)
-    return PathState(o, d, thr, rad, bs.pdf, alive, bs.specular, state.keys)
+    return PathState(o, d, thr, rad, bs.pdf, alive, bs.specular, state.keys,
+                     state.times)
 
 
 def _bounce_mafrix(scene, state: PathState, bounce: int,
@@ -214,7 +225,7 @@ def _bounce_mafrix(scene, state: PathState, bounce: int,
     o = hit.point + hit.normal * flip
     thr = v3.where(alive, thr, zero)
     return PathState(o, bs.wi, thr, rad, state.prev_pdf, alive, state.specular,
-                     state.keys)
+                     state.keys, state.times)
 
 
 def _bounce_fn(config: PathTracerConfig):
@@ -333,9 +344,12 @@ def _compact_bounce_loop(scene, state: PathState, config, packed) -> V3:
 
 
 def trace_radiance(scene, o: V3, d: V3, keys: torch.Tensor,
-                   config: PathTracerConfig, packed=None) -> torch.Tensor:
+                   config: PathTracerConfig, packed=None,
+                   times=None) -> torch.Tensor:
     """Estimate radiance for a batch of camera rays (o, d as V3 of (B,)
-    columns, keys (B, 2)). Returns (B, 3)."""
+    columns, keys (B, 2)); `times` (B,) are the rays' shutter times, read
+    when `config.motion_blur` (the physical estimator only, as in the JAX
+    package). Returns (B, 3)."""
     if packed is None:
         packed = packed_attr_table(scene)
     B = o.x.shape[0]
@@ -344,7 +358,7 @@ def trace_radiance(scene, o: V3, d: V3, keys: torch.Tensor,
     state = PathState(o, d, V3(one, one, one), V3(zero, zero, zero), one,
                       torch.ones((B,), dtype=torch.bool, device=o.x.device),
                       torch.ones((B,), dtype=torch.bool, device=o.x.device),
-                      keys)
+                      keys, zero if times is None else times)
     if config.compact and config.max_depth > 1:
         rad = _compact_bounce_loop(scene, state, config, packed)
     else:
@@ -510,7 +524,8 @@ def render_image(scene, camera, width: int, height: int, spp: int,
         u = (pxg[off * G:(off + Bc) * G] + jit_uv[:, 0]) / width
         v = (pyg[off * G:(off + Bc) * G] + jit_uv[:, 1]) / height
         o, d = camera.get_rays(u, v, lens_uv=lens_uv)
-        rad = trace_radiance(scene, o, d, skeys, config, packed)
+        times = rng.uniforms(skeys, 1002) if config.motion_blur else None
+        rad = trace_radiance(scene, o, d, skeys, config, packed, times=times)
         acc[ci] = acc[ci] + rad.reshape(Bc, G, 3).sum(dim=1)
     img = torch.cat(acc)[:B].index_select(0, torch.as_tensor(inv, device=dev)) / spp
     return img.reshape(height, width, 3)
@@ -556,6 +571,7 @@ def render_flat_pixels(scene, camera, pixel_ids: torch.Tensor, width: int,
         lens_uv = rng.uniforms(skeys, 1001, (2,))
         o, d = camera.get_rays((pxg + jit_uv[:, 0]) / width,
                                (pyg + jit_uv[:, 1]) / height, lens_uv=lens_uv)
-        rad = trace_radiance(scene, o, d, skeys, config, packed)
+        times = rng.uniforms(skeys, 1002) if config.motion_blur else None
+        rad = trace_radiance(scene, o, d, skeys, config, packed, times=times)
         acc = acc + rad.reshape(B, G, 3).sum(dim=1)
     return acc / spp

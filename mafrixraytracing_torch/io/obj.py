@@ -2,8 +2,9 @@
 
 A copy of the Python parser of `mafrixraytracing_tpu/io/obj.py` (NumPy only):
 importing any module of that package imports JAX, and the port runs where
-JAX is absent. The g++ fast path of that package (`io/native.py`) is not
-ported yet, so `load_obj` takes no `use_native` argument.
+JAX is absent. `load_obj(use_native="auto")` prefers the C++ parser
+(`io/native.py`, which shares this array representation) and parses in
+Python when no compiler is found.
 
 Same grammar coverage as the reference's FParsec loader
 (`Models/ObjModelLoader.fs:306-341`): v / vt / vn; faces with `a`, `a/b`,
@@ -85,9 +86,24 @@ class ObjModel:
         return [self.usemtl_names[i] if i >= 0 else None for i in fm]
 
 
-def load_obj(path: str) -> ObjModel:
-    """Parse an OBJ file (and the MTL files it names) with the Python
-    parser."""
+def load_obj(path: str, use_native="auto") -> ObjModel:
+    """Parse an OBJ file (and the MTL files it names). `use_native`: "auto"
+    prefers the C++ parser (`io/native.py`, much faster on large meshes) and
+    parses in Python when it cannot be built; "never" or False forces Python;
+    "always" or True requires the C++ parser and raises `RuntimeError` when
+    its build fails."""
+    if use_native not in ("auto", "always", "never", True, False):
+        raise ValueError(f"use_native must be 'auto', 'always', 'never' or a "
+                         f"bool, got {use_native!r}")
+    if use_native in ("auto", "always", True):
+        from mafrixraytracing_torch.io import native
+
+        model = native.load_obj_native(path)
+        if model is not None:
+            return model
+        if use_native != "auto":
+            raise RuntimeError(
+                f"native OBJ parser unavailable: {native.build_error()}")
     return _load_obj_python(path)
 
 

@@ -134,12 +134,14 @@ def nee_point_soa(scene, hit, occluded_fn, sh, wo=None) -> V3:
 
 
 def nee_sphere_soa(scene, hit, key, occluded_fn, sh, mis: bool = True,
-                   wo=None) -> V3:
+                   wo=None, times=None) -> V3:
     """Direct light from emissive spheres: one direction per sphere light,
     uniform in the visible cone (pdf_sa = 1 / (2 pi (1 - cos_max))), power-2
     MIS against the BSDF pdf. The cone geometry is detached: it
     parameterizes the sampler, not the integrand. Shading points inside a
-    sphere light are left to the BSDF side."""
+    sphere light are left to the BSDF side. With `times` (B,) a moving sphere
+    light is sampled at centre + velocity * time, where the time-shifted
+    search and the BSDF-side MIS pdf of `hit_attributes_soa` see it."""
     SL = scene.slight_center.shape[0]
     zero = torch.zeros_like(hit.t)
     total = V3(zero, zero, zero)
@@ -152,6 +154,8 @@ def nee_sphere_soa(scene, hit, key, occluded_fn, sh, mis: bool = True,
     for i in range(SL):
         u = rng.uniforms(rng.split_dim(key, 40 + i), 0, (2,))
         c = V3.of(scene.slight_center[i].detach())
+        if times is not None:
+            c = c + V3.of(scene.slight_velocity[i].detach()) * times
         r = scene.slight_radius[i].detach()
         to_c = c - hp
         dc2 = torch.clamp(v3.dot(to_c, to_c), min=1e-12)

@@ -11,13 +11,20 @@ from mafrixraytracing_torch.geometry import intersect as isect
 from mafrixraytracing_torch.ops import intersect as ops_isect
 
 
-def intersect_shade_soa(scene, o, d, t_min: float, t_max, packed=None):
+def intersect_shade_soa(scene, o, d, t_min: float, t_max, packed=None,
+                        times=None):
     """Closest-hit query -> (HitS, ShadingS): detached search, then the
-    differentiable attribute recompute from the packed table."""
-    t, idx = ops_isect.find_closest_soa(scene, o, d, t_min, t_max)
-    return isect.hit_attributes_soa(scene, o, d, idx, t, packed=packed)
+    differentiable attribute recompute from the packed table. `times` (B,)
+    enables sphere motion blur in both."""
+    if times is not None:
+        times = times.detach()
+    t, idx = ops_isect.find_closest_soa(scene, o, d, t_min, t_max, times=times)
+    return isect.hit_attributes_soa(scene, o, d, idx, t, packed=packed,
+                                    times=times)
 
 
-def occluded_soa(scene, o, d, t_min: float, t_max):
+def occluded_soa(scene, o, d, t_min: float, t_max, times=None):
     """Any-hit (shadow) query; visibility is not differentiated."""
-    return ops_isect.occluded_soa(scene, o, d, t_min, t_max)
+    if times is not None:
+        times = times.detach()
+    return ops_isect.occluded_soa(scene, o, d, t_min, t_max, times=times)

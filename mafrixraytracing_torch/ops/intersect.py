@@ -19,6 +19,15 @@ smaller dense pass), the lists hold supercluster ids, and kernels D
 `csrc/intersect_super.cu`) refine each listed supercluster against its 16
 child AABBs (`pack_bounds`) before they stage a child's triangles.
 
+With `FUSED_CULL` set (off by default, as in the JAX package) the cull moves
+into the walk's block: kernels F, G (flat) and H, I (two-level) of
+`csrc/intersect_fused.cu` take the packed box table (`pack_aabbs`, at most
+`CP` = 128 clusters or superclusters) and the rays, slab-test, order and walk
+in one launch, and `_prep` skips `_cull` and its (B, C) temporaries. Their
+lists equal `_cull`'s, so they agree bit for bit with A, B, D, E fed by
+`_cull`. More than 128 boxes raise `ValueError`; the fused path never drops to
+the list path on its own.
+
 Around them, as in the JAX package: mega triangles (huge walls and floors,
 excluded from the clusters) are tested densely first and cap `t_max`
 (`_mega_hits`); spheres are merged densely as index T + s. The search is
@@ -26,11 +35,13 @@ detached: gradients come from the attribute recompute in
 `geometry.intersect.hit_attributes_soa`.
 
 Each kernel has a plain PyTorch version in this module (`closest_reference`,
-`anyhit_reference`, `closest_super_reference`, `anyhit_super_reference`): a
-dense test of every ray against every triangle of the clusters (or of the
+`anyhit_reference`, `closest_super_reference`, `anyhit_super_reference`, and
+for the fused kernels `fused_*_reference`: `_cull` on the packed boxes, then
+the list kernel's plain version): a dense test of every ray against every triangle of the clusters (or of the
 children of the superclusters) listed for its tile, in the kernel's
 arithmetic and tie-break. The wrappers (`closest_hit`, `any_hit`,
-`closest_super_hit`, `any_super_hit`) launch the kernel for CUDA tensors and
+`closest_super_hit`, `any_super_hit`, `fused_closest_hit`, `fused_any_hit`,
+`fused_closest_super_hit`, `fused_any_super_hit`) launch the kernel for CUDA tensors and
 run the plain version for CPU tensors. The walk's early exit and the child
 refinement are culls that never change the result, so the plain versions
 have neither; `refine_children` states the refinement's arithmetic in plain
@@ -53,6 +64,11 @@ COMP = 12           # packed components per triangle (pack_tris)
 # Scenes with more clusters than this take the two-level path. A module
 # variable so that tests can force that path on small scenes.
 SUPER_MIN_C = 128
+# Cull inside the walk's block (kernels F-I) instead of `_cull` in PyTorch. A
+# module variable that callers patch; off by default, as in the JAX package.
+FUSED_CULL = False
+CP = 128            # box slots of the fused kernels' table (pack_aabbs)
+AABB_ROWS = 8       # its rows: min xyz, max xyz, live, pad
 BOUNDS_ROWS = 7     # rows per supercluster in pack_bounds: min xyz, max xyz, live
 # Kernels D and E widen the two comparisons of their child refinement by this
 # much (their launchers pass these two numbers; `refine_children` uses the
@@ -104,6 +120,31 @@ def pack_bounds(scene) -> torch.Tensor:
     live = (cmin[:, :1] <= cmax[:, :1]).to(torch.float32)
     rows = torch.cat([cmin, cmax, live], dim=1)  # (S * 16, 7)
     return rows.reshape(S, SUPER, BOUNDS_ROWS).permute(0, 2, 1).contiguous()
+
+
+def pack_aabbs(cmin: torch.Tensor, cmax: torch.Tensor) -> torch.Tensor:
+    """(8, CP) component-major box table of the fused kernels: rows [min x,
+    y, z, max x, y, z, live, pad] across CP = 128 slots. Empty boxes carry
+    the +-3e38 sentinels, whose slabs overflow and would pass the interval
+    test: the live row masks them, as in `_cull`. Slots past the last box
+    are zero (live 0). More than CP boxes raise `ValueError`."""
+    C = cmin.shape[0]
+    if C > CP:
+        raise ValueError(f"the fused cull takes at most {CP} boxes, got {C}")
+    live = (cmin[:, 0] <= cmax[:, 0]).to(torch.float32)
+    rows = torch.cat([cmin.t(), cmax.t(), live[None, :],
+                      torch.zeros_like(live)[None, :]])  # (8, C)
+    return torch.nn.functional.pad(rows, (0, CP - C)).contiguous()
+
+
+def _unpack_aabbs(aabbs: torch.Tensor, n: int):
+    """The first n boxes of a `pack_aabbs` table as (cmin, cmax) of (n, 3),
+    with the sentinels of an empty box wherever the live row is 0, so that
+    `_cull`'s own live test reads the table's."""
+    live = aabbs[6, :n, None] > 0.5
+    cmin = torch.where(live, aabbs[0:3, :n].t(), 3e38)
+    cmax = torch.where(live, aabbs[3:6, :n].t(), -3e38)
+    return cmin, cmax
 
 
 def _safe_inverse(da):
@@ -411,6 +452,131 @@ def anyhit_super_kernel(tri, bounds, lists, counts, entries, rays,
     return occ.bool()
 
 
+# ---------------------------------------------------------------------------
+# Kernels F, G, H and I: the cull inside the walk
+# ---------------------------------------------------------------------------
+
+
+def _fused_walk(tri, aabbs, rays, n_box: int):
+    """`_cull` on the first n_box boxes of the packed table -> the list
+    walk's (lists, counts, entries, rays with `far` in row 7)."""
+    o, d = V3(rays[0], rays[1], rays[2]), V3(rays[3], rays[4], rays[5])
+    lists, counts, entries, far = _cull(o, d, rays[6], *_unpack_aabbs(aabbs, n_box))
+    return lists, counts, entries, torch.cat([rays[:7], far[None]])
+
+
+def fused_closest_reference(tri, aabbs, rays, t_min: float):
+    """Plain version of kernel F: `_cull` on the packed boxes, then
+    `closest_reference`. rays (8, B) = [o, d, tmax, unused]."""
+    return closest_reference(tri, *_fused_walk(tri, aabbs, rays, tri.shape[0]),
+                             t_min)
+
+
+def fused_anyhit_reference(tri, aabbs, rays, t_min: float):
+    """Plain version of kernel G: `_cull`, then `anyhit_reference`."""
+    return anyhit_reference(tri, *_fused_walk(tri, aabbs, rays, tri.shape[0]),
+                            t_min)
+
+
+def fused_closest_super_reference(tri, bounds, aabbs, rays, t_min: float):
+    """Plain version of kernel H: `_cull` on the packed supercluster boxes,
+    then `closest_super_reference`."""
+    return closest_super_reference(
+        tri, bounds, *_fused_walk(tri, aabbs, rays, bounds.shape[0]), t_min)
+
+
+def fused_anyhit_super_reference(tri, bounds, aabbs, rays, t_min: float):
+    """Plain version of kernel I: `_cull`, then `anyhit_super_reference`."""
+    return anyhit_super_reference(
+        tri, bounds, *_fused_walk(tri, aabbs, rays, bounds.shape[0]), t_min)
+
+
+def _check_fused_args(tri, aabbs, rays, bounds=None):
+    """Validate the fused kernels' operands -> the number of boxes."""
+    C = tri.shape[0]
+    B = rays.shape[1]
+    n_box = C if bounds is None else bounds.shape[0]
+    if n_box > CP:
+        raise ValueError(f"the fused cull takes at most {CP} boxes, got {n_box}")
+    if B % TILE:
+        raise ValueError(f"ray batch {B} is not a multiple of {TILE}")
+    if tri.data_ptr() % 16:
+        raise ValueError("tri must be 16-byte aligned")
+    cuda.require(tri, "tri", torch.float32, (C, COMP, CLUSTER_SIZE))
+    cuda.require(aabbs, "aabbs", torch.float32, (AABB_ROWS, CP))
+    cuda.require(rays, "rays", torch.float32, (8, B))
+    if bounds is not None:
+        if n_box * SUPER < C:
+            raise ValueError(f"{n_box} superclusters do not cover {C} clusters")
+        cuda.require(bounds, "bounds", torch.float32, (n_box, BOUNDS_ROWS, SUPER))
+    return n_box
+
+
+def fused_closest_kernel(tri, aabbs, rays, t_min: float):
+    """Launch kernel F (csrc/intersect_fused.cu). Same contract as
+    `fused_closest_reference`."""
+    n_box = _check_fused_args(tri, aabbs, rays)
+    B = rays.shape[1]
+    t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
+    i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
+    err = cuda.lib().mfx_fused_closest(
+        tri.data_ptr(), aabbs.data_ptr(), rays.data_ptr(), B, n_box, float(t_min),
+        t_out.data_ptr(), i_out.data_ptr(), cuda.stream_of(rays))
+    cuda.check(err, "fused_closest")
+    cuda.LAUNCHES["fused_closest"] += 1
+    return t_out, i_out
+
+
+def fused_anyhit_kernel(tri, aabbs, rays, t_min: float):
+    """Launch kernel G (csrc/intersect_fused.cu). Same contract as
+    `fused_anyhit_reference`."""
+    n_box = _check_fused_args(tri, aabbs, rays)
+    B = rays.shape[1]
+    occ = torch.empty((B,), dtype=torch.uint8, device=rays.device)
+    err = cuda.lib().mfx_fused_anyhit(
+        tri.data_ptr(), aabbs.data_ptr(), rays.data_ptr(), B, n_box, float(t_min),
+        occ.data_ptr(), cuda.stream_of(rays))
+    cuda.check(err, "fused_anyhit")
+    cuda.LAUNCHES["fused_anyhit"] += 1
+    return occ.bool()
+
+
+def fused_closest_super_kernel(tri, bounds, aabbs, rays, t_min: float):
+    """Launch kernel H (csrc/intersect_fused.cu). Same contract as
+    `fused_closest_super_reference`."""
+    n_box = _check_fused_args(tri, aabbs, rays, bounds)
+    B, C = rays.shape[1], tri.shape[0]
+    t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
+    i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
+    err = cuda.lib().mfx_fused_closest_super(
+        tri.data_ptr(), bounds.data_ptr(), aabbs.data_ptr(), rays.data_ptr(), B, C,
+        n_box, float(t_min), REFINE_REL, REFINE_ABS, t_out.data_ptr(),
+        i_out.data_ptr(), cuda.stream_of(rays))
+    cuda.check(err, "fused_closest_super")
+    cuda.LAUNCHES["fused_closest_super"] += 1
+    return t_out, i_out
+
+
+def fused_anyhit_super_kernel(tri, bounds, aabbs, rays, t_min: float):
+    """Launch kernel I (csrc/intersect_fused.cu). Same contract as
+    `fused_anyhit_super_reference`."""
+    n_box = _check_fused_args(tri, aabbs, rays, bounds)
+    B, C = rays.shape[1], tri.shape[0]
+    occ = torch.empty((B,), dtype=torch.uint8, device=rays.device)
+    err = cuda.lib().mfx_fused_anyhit_super(
+        tri.data_ptr(), bounds.data_ptr(), aabbs.data_ptr(), rays.data_ptr(), B, C,
+        n_box, float(t_min), REFINE_REL, REFINE_ABS, occ.data_ptr(),
+        cuda.stream_of(rays))
+    cuda.check(err, "fused_anyhit_super")
+    cuda.LAUNCHES["fused_anyhit_super"] += 1
+    return occ.bool()
+
+
+# ---------------------------------------------------------------------------
+# Dispatch on the tensors' device
+# ---------------------------------------------------------------------------
+
+
 def closest_hit(tri, lists, counts, entries, rays, t_min: float):
     """Kernel A for CUDA tensors, its plain version for CPU tensors."""
     if rays.is_cuda:
@@ -443,18 +609,50 @@ def any_super_hit(tri, bounds, lists, counts, entries, rays, t_min: float):
                                   t_min)
 
 
+def fused_closest_hit(tri, aabbs, rays, t_min: float):
+    """Kernel F for CUDA tensors, its plain version for CPU tensors."""
+    if rays.is_cuda:
+        return fused_closest_kernel(tri, aabbs, rays, t_min)
+    return fused_closest_reference(tri, aabbs, rays, t_min)
+
+
+def fused_any_hit(tri, aabbs, rays, t_min: float):
+    """Kernel G for CUDA tensors, its plain version for CPU tensors."""
+    if rays.is_cuda:
+        return fused_anyhit_kernel(tri, aabbs, rays, t_min)
+    return fused_anyhit_reference(tri, aabbs, rays, t_min)
+
+
+def fused_closest_super_hit(tri, bounds, aabbs, rays, t_min: float):
+    """Kernel H for CUDA tensors, its plain version for CPU tensors."""
+    if rays.is_cuda:
+        return fused_closest_super_kernel(tri, bounds, aabbs, rays, t_min)
+    return fused_closest_super_reference(tri, bounds, aabbs, rays, t_min)
+
+
+def fused_any_super_hit(tri, bounds, aabbs, rays, t_min: float):
+    """Kernel I for CUDA tensors, its plain version for CPU tensors."""
+    if rays.is_cuda:
+        return fused_anyhit_super_kernel(tri, bounds, aabbs, rays, t_min)
+    return fused_anyhit_super_reference(tri, bounds, aabbs, rays, t_min)
+
+
 # ---------------------------------------------------------------------------
 # Queries
 # ---------------------------------------------------------------------------
 
 
-def _prep(scene, o: V3, d: V3, t_min: float, t_max, anyhit: bool):
+def _prep(scene, o: V3, d: V3, t_min: float, t_max, anyhit: bool,
+          fused: bool = False):
     """Detach, pad to a TILE multiple (dead padding rays), run the dense
     mega test (capping t_max so the cull prunes everything behind the first
     mega hit), cull and pack. Returns the walk's operands plus what the
     caller merges. With more than SUPER_MIN_C clusters the cull runs on the
     superclusters and the walk's operands are those of kernels D and E
-    (`pack_bounds` second); else those of kernels A and B."""
+    (`pack_bounds` second); else those of kernels A and B. With `fused` there
+    is no cull here: the operands are those of kernels F and G, or H and I
+    (the packed box table in place of lists, counts and entries; the rays'
+    `far` row is zero and unread)."""
     use_super = scene.cluster_min.shape[0] > SUPER_MIN_C
     o = o.map(torch.Tensor.detach)
     d = d.map(torch.Tensor.detach)
@@ -483,28 +681,52 @@ def _prep(scene, o: V3, d: V3, t_min: float, t_max, anyhit: bool):
     else:
         boxes = (scene.cluster_min, scene.cluster_max)
         packed = (pack_tris(scene),)
-    lists, counts, entries, far = _cull(o, d, t_max_k, *boxes)
-    rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z, t_max_k, far])
-    walk = (*packed, lists.to(torch.int32), counts.to(torch.int32),
-            entries.contiguous(), rays)
+    if fused:
+        rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z, t_max_k,
+                            torch.zeros_like(t_max_k)])
+        walk = (*packed, pack_aabbs(*boxes), rays)
+    else:
+        lists, counts, entries, far = _cull(o, d, t_max_k, *boxes)
+        rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z, t_max_k, far])
+        walk = (*packed, lists.to(torch.int32), counts.to(torch.int32),
+                entries.contiguous(), rays)
     return walk, B, t_max_arr, mega_t[:B], mega_idx[:B]
 
 
 def _is_super(walk) -> bool:
-    """Whether `_prep` made the two-level walk's operands."""
-    return len(walk) == 6
+    """Whether `_prep` made the two-level walk's operands: (tri, bounds,
+    lists, counts, entries, rays) or, fused, (tri, bounds, aabbs, rays);
+    the flat walk's have no bounds."""
+    return len(walk) in (4, 6)
+
+
+def _is_fused(walk) -> bool:
+    """Whether `_prep` made the fused kernels' operands."""
+    return len(walk) in (3, 4)
+
+
+def _searches(walk):
+    """(closest-hit, any-hit) dispatchers for the operands `_prep` made."""
+    if _is_fused(walk):
+        if _is_super(walk):
+            return fused_closest_super_hit, fused_any_super_hit
+        return fused_closest_hit, fused_any_hit
+    if _is_super(walk):
+        return closest_super_hit, any_super_hit
+    return closest_hit, any_hit
 
 
 @torch.no_grad()
-def find_closest_soa(scene, o: V3, d: V3, t_min: float, t_max):
+def find_closest_soa(scene, o: V3, d: V3, t_min: float, t_max, times=None):
     """Closest hit per ray: clustered triangles through kernel A (kernel D
-    on the two-level path), mega triangles and spheres merged densely.
+    on the two-level path; F or H with `FUSED_CULL`), mega triangles and
+    spheres merged densely. `times` (B,) shifts the spheres by their
+    velocities (motion blur; the clustered triangles are static).
     Returns (t (B,) f32, BIG on a miss; idx (B,) int64: triangle [0, T),
     sphere T + s, -1 on a miss). Not differentiable by design."""
     walk, B, t_max_arr, mega_t, mega_idx = _prep(scene, o, d, t_min, t_max,
-                                                 anyhit=False)
-    search = closest_super_hit if _is_super(walk) else closest_hit
-    tt, ti = search(*walk, t_min)
+                                                 anyhit=False, fused=FUSED_CULL)
+    tt, ti = _searches(walk)[0](*walk, t_min)
     tt, ti = tt[:B], ti[:B].long()
     tt = torch.where(ti >= 0, tt, BIG)
     # the walk's t_max was capped at mega_t, so a clustered hit is closer
@@ -513,7 +735,8 @@ def find_closest_soa(scene, o: V3, d: V3, t_min: float, t_max):
     ti = torch.where(use_mega, mega_idx, ti)
     if scene.num_live_spheres > 0:
         st, si = closest_sphere_soa(scene, o.map(torch.Tensor.detach),
-                                    d.map(torch.Tensor.detach), t_min, t_max_arr)
+                                    d.map(torch.Tensor.detach), t_min, t_max_arr,
+                                    times=times)
         use_sphere = st < tt
         tt = torch.where(use_sphere, st, tt)
         ti = torch.where(use_sphere, scene.tri_v0.shape[0] + si, ti)
@@ -521,16 +744,17 @@ def find_closest_soa(scene, o: V3, d: V3, t_min: float, t_max):
 
 
 @torch.no_grad()
-def occluded_soa(scene, o: V3, d: V3, t_min: float, t_max):
+def occluded_soa(scene, o: V3, d: V3, t_min: float, t_max, times=None):
     """Any hit in (t_min, t_max) per ray (shadow queries): clustered
-    triangles through kernel B (kernel E on the two-level path), mega
-    triangles and spheres densely."""
+    triangles through kernel B (kernel E on the two-level path; G or I with
+    `FUSED_CULL`), mega triangles and spheres densely; `times` as in
+    `find_closest_soa`."""
     walk, B, t_max_arr, mega_t, mega_idx = _prep(scene, o, d, t_min, t_max,
-                                                 anyhit=True)
-    search = any_super_hit if _is_super(walk) else any_hit
-    occ = search(*walk, t_min)[:B] | (mega_idx >= 0)
+                                                 anyhit=True, fused=FUSED_CULL)
+    occ = _searches(walk)[1](*walk, t_min)[:B] | (mega_idx >= 0)
     if scene.num_live_spheres > 0:
         st, _ = closest_sphere_soa(scene, o.map(torch.Tensor.detach),
-                                   d.map(torch.Tensor.detach), t_min, t_max_arr)
+                                   d.map(torch.Tensor.detach), t_min, t_max_arr,
+                                   times=times)
         occ = occ | (st < BIG)
     return occ

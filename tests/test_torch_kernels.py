@@ -10,13 +10,17 @@ against its plain version on the card: closest-hit `idx` equal and `t`
 within rtol 1e-4 / atol 1e-5 (the search contract; the kernels are built
 to agree bit for bit), any-hit and the gather exactly, for the flat walks
 (A, B) and the two-level walks (D, E: small scenes with `SUPER_MIN_C`
-patched to 0, and a mesh of 20,000 triangles); the scatter-add (J) within
+patched to 0, and a mesh of 20,000 triangles); the fused-cull searches (F, G,
+H, I) bit for bit against their plain versions and against A, B, D, E fed by
+the PyTorch cull on the same rays; the scatter-add (J) within
 1e-5 of the sum of |terms| of a float64 sum and bit-equal across launches;
 a gradient evaluation of `opt.inverse` bit-equal when repeated; and a small render
 through the kernels against the same render on the CPU (image rtol 1e-3 /
 atol 1e-4 on 99.5% of pixels: the two devices' sin/cos/sqrt round
 differently, which can flip a grazing branch).
 """
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -117,9 +121,16 @@ def test_wrappers_take_plain_versions_on_cpu():
     assert big.cluster_min.shape[0] > oi.SUPER_MIN_C
     oi.find_closest_soa(big, o, d, T_MIN, t_max)
     oi.occluded_soa(big, o, d, T_MIN, t_max)
+    with mock.patch.object(oi, "FUSED_CULL", True):
+        oi.find_closest_soa(ts, o, d, T_MIN, t_max)
+        oi.occluded_soa(ts, o, d, T_MIN, t_max)
+        oi.find_closest_soa(big, o, d, T_MIN, t_max)
+        oi.occluded_soa(big, o, d, T_MIN, t_max)
     assert cuda.LAUNCHES == {"closest": 0, "anyhit": 0, "unpack": 0,
                              "closest_super": 0, "anyhit_super": 0,
-                             "scatter": 0}
+                             "scatter": 0, "fused_closest": 0,
+                             "fused_anyhit": 0, "fused_closest_super": 0,
+                             "fused_anyhit_super": 0}
 
 
 def test_kernel_entry_points_refuse_cpu_tensors():
@@ -140,6 +151,18 @@ def test_kernel_entry_points_refuse_cpu_tensors():
         oi.closest_super_kernel(*walk, T_MIN)
     with pytest.raises(ValueError, match="CUDA"):
         oi.anyhit_super_kernel(*walk, T_MIN)
+    walk, *_ = oi._prep(big, o, d, T_MIN, t_max, anyhit=False, fused=True)
+    assert oi._is_super(walk) and oi._is_fused(walk)
+    with pytest.raises(ValueError, match="CUDA"):
+        oi.fused_closest_super_kernel(*walk, T_MIN)
+    with pytest.raises(ValueError, match="CUDA"):
+        oi.fused_anyhit_super_kernel(*walk, T_MIN)
+    walk, *_ = oi._prep(ts, o, d, T_MIN, t_max, anyhit=False, fused=True)
+    assert oi._is_fused(walk) and not oi._is_super(walk)
+    with pytest.raises(ValueError, match="CUDA"):
+        oi.fused_closest_kernel(*walk, T_MIN)
+    with pytest.raises(ValueError, match="CUDA"):
+        oi.fused_anyhit_kernel(*walk, T_MIN)
 
 
 def test_too_many_clusters_raises():
@@ -164,7 +187,8 @@ def test_library_name_tracks_sources():
     assert name.startswith("libmfx_kernels_") and name.endswith(".so")
     assert cuda.library_path() == cuda.library_path()
     assert {p.name for p in cuda._sources()} == {
-        "intersect.cu", "intersect_super.cu", "scatter.cu", "unpack.cu"}
+        "intersect.cu", "intersect_fused.cu", "intersect_super.cu",
+        "scatter.cu", "unpack.cu"}
 
 
 # --- on the card -----------------------------------------------------------
@@ -218,6 +242,96 @@ def test_super_kernels_match_plain_versions(card, monkeypatch, name, n):
         walk, *_ = oi._prep(ts, o, d, T_MIN, t_far, anyhit=True)
         assert torch.equal(oi.anyhit_super_kernel(*walk, T_MIN),
                            oi.anyhit_super_reference(*walk, T_MIN))
+
+
+def fused_and_list(ts, o, d, t_far, anyhit):
+    """The fused kernels' and the list kernels' operands for the same rays."""
+    fw, *_ = oi._prep(ts, o, d, T_MIN, t_far, anyhit=anyhit, fused=True)
+    lw, *_ = oi._prep(ts, o, d, T_MIN, t_far, anyhit=anyhit)
+    assert torch.equal(fw[-1][:7].nan_to_num(), lw[-1][:7].nan_to_num())
+    return fw, lw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_level,name", [
+    *[(lv, c) for lv in (False, True) for c in CASES],
+    (True, "bumpy")])    # bumpy has more than 128 clusters: no flat path
+@pytest.mark.parametrize("n", [100, 1000])
+def test_fused_kernels_match_plain_and_list_kernels(card, monkeypatch, name,
+                                                    two_level, n):
+    """F, G (flat) and H, I (two-level) bit for bit against their plain
+    versions and against A, B, D, E on the PyTorch cull's lists; ~10% dead
+    rays, non-aligned batches, per-ray t_max."""
+    if two_level:
+        monkeypatch.setattr(oi, "SUPER_MIN_C", 0)
+    spec, origin = BUMPY if name == "bumpy" else CASES[name]
+    ts = compile_scene(spec(), device=card).scene
+    o, d, t_max = rays(n, origin, seed=n, device=card, aimed=name == "bumpy")
+    fw, lw = fused_and_list(ts, o, d, t_max, anyhit=False)
+    assert oi._is_super(fw) == two_level == oi._is_super(lw)
+    if two_level:
+        fused, plain, lst = (oi.fused_closest_super_kernel,
+                             oi.fused_closest_super_reference,
+                             oi.closest_super_kernel)
+    else:
+        fused, plain, lst = (oi.fused_closest_kernel, oi.fused_closest_reference,
+                             oi.closest_kernel)
+    tk, ik = fused(*fw, T_MIN)
+    torch.cuda.synchronize()
+    tp, ip = plain(*fw, T_MIN)
+    tl, il = lst(*lw, T_MIN)
+    assert torch.equal(ik, ip) and torch.equal(tk, tp)
+    assert torch.equal(ik, il) and torch.equal(tk, tl)
+    if name in ("soup", "bumpy"):
+        assert (ik >= 0).sum() > n // 20
+    t_near = torch.where(ik[:n] >= 0, tk[:n] * 1.01, t_max)
+    for t_far in (t_max * 0.4, t_near):
+        fw, lw = fused_and_list(ts, o, d, t_far, anyhit=True)
+        if two_level:
+            occ = oi.fused_anyhit_super_kernel(*fw, T_MIN)
+            assert torch.equal(occ, oi.fused_anyhit_super_reference(*fw, T_MIN))
+            assert torch.equal(occ, oi.anyhit_super_kernel(*lw, T_MIN))
+        else:
+            occ = oi.fused_anyhit_kernel(*fw, T_MIN)
+            assert torch.equal(occ, oi.fused_anyhit_reference(*fw, T_MIN))
+            assert torch.equal(occ, oi.anyhit_kernel(*lw, T_MIN))
+
+
+@pytest.mark.cuda
+def test_fused_all_dead_tile_and_nan_ray(card):
+    """A tile whose every ray is dead walks nothing; a NaN ray hits nothing
+    and does not disturb its tile."""
+    ts = scene_on("soup", card)
+    o, d, t_max = rays(384, CASES["soup"][1], seed=4, device=card, dead_frac=0.0)
+    t_max[128:256] = 0.0
+    o.x[300] = float("nan")
+    fw, lw = fused_and_list(ts, o, d, t_max, anyhit=False)
+    tk, ik = oi.fused_closest_kernel(*fw, T_MIN)
+    tl, il = oi.closest_kernel(*lw, T_MIN)
+    assert torch.equal(ik, il) and torch.equal(tk, tl)
+    assert (ik[128:256] == -1).all() and ik[300] == -1 and (ik >= 0).sum() > 50
+    assert not oi.fused_anyhit_kernel(*fw, T_MIN)[128:256].any()
+
+
+@pytest.mark.cuda
+def test_fused_queries_launch_kernels_and_match_list_path(card, monkeypatch):
+    """`FUSED_CULL` sends the queries through F-I and no list kernel, with
+    the list path's results."""
+    on = lambda v: v.map(lambda c: c.to(card))  # noqa: E731
+    for spec, origin, names in (
+            (CASES["soup"][0], CASES["soup"][1], ("fused_closest", "fused_anyhit")),
+            (bumpy_sphere, BUMPY[1], ("fused_closest_super", "fused_anyhit_super"))):
+        ts = compile_scene(spec(), device=card).scene
+        o, d, t_max = rays(777, origin, seed=5, device="cpu", aimed=spec is bumpy_sphere)
+        args = (ts, on(o), on(d), T_MIN, t_max.to(card))
+        want = oi.find_closest_soa(*args), oi.occluded_soa(*args[:4], args[4] * 0.4)
+        cuda.reset_launches()
+        monkeypatch.setattr(oi, "FUSED_CULL", True)
+        got = oi.find_closest_soa(*args), oi.occluded_soa(*args[:4], args[4] * 0.4)
+        monkeypatch.setattr(oi, "FUSED_CULL", False)
+        assert {k for k, v in cuda.LAUNCHES.items() if v} == set(names)
+        assert torch.equal(got[0][0], want[0][0]) and torch.equal(got[0][1], want[0][1])
+        assert torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda

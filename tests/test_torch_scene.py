@@ -50,10 +50,28 @@ def test_compile_scene_fields_equal(name):
         assert getattr(js, k) == getattr(ts, k), k
 
 
-@pytest.mark.parametrize("name", SCENES)
+def moving_spheres():
+    """A moving sphere and a moving emissive sphere: non-zero `sph_velocity`
+    and `slight_velocity`, which motion blur reads."""
+    from mafrixraytracing_tpu.scene import spec as S
+
+    return S.SceneSpec(
+        materials=[S.MaterialSpec(albedo=(0.9, 0.2, 0.2)),
+                   S.MaterialSpec(type="emissive", emission=(9.0, 8.0, 6.0))],
+        spheres=[S.SphereSpec(center=(-0.8, 0.5, 0.0), radius=0.5, material=0,
+                              velocity=(1.6, 0.25, -0.5)),
+                 S.SphereSpec(center=(1.2, 1.4, 0.3), radius=0.3, material=1,
+                              velocity=(0.0, -0.8, 0.5))])
+
+
+@pytest.mark.parametrize("name", SCENES + ["moving_spheres"])
 def test_from_jax_arrays_round_trip(name):
-    js = jcompile(getattr(jbuiltin, name)()).scene
+    spec = moving_spheres() if name == "moving_spheres" else getattr(jbuiltin, name)()
+    js = jcompile(spec).scene
     d, flags = jax_scene_arrays(js)
+    if name == "moving_spheres":
+        assert np.abs(d["sph_velocity"]).max() == 1.6
+        assert np.abs(d["slight_velocity"]).max() == 0.8
     ts = from_jax_arrays(d, flags, device="cpu")
     for k in TENSOR_FIELDS:
         np.testing.assert_array_equal(getattr(ts, k).numpy(), d[k], err_msg=k)
