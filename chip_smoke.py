@@ -34,7 +34,13 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    fused_anyhit_super on the mesh) on the rays of every walk above: bit-equal
    to their plain versions and to the list kernels fed by the PyTorch cull,
    each one's time beside the time of the cull with its conversions plus the
-   list kernel on the same rays.
+   list kernel on the same rays. The cull kernel (cull) on the rays of every
+   walk above: lists, counts, entries and far `torch.equal` to its plain
+   version (`cull_reference`) and to what `_prep` got from the PyTorch cull,
+   with its time, the PyTorch cull's and its bound. The instrumented walks
+   (closest_dbg, closest_full) on Cornell and on the soup: `(t, idx)` bit-equal
+   to closest's and to their step-by-step plain versions', `walked` equal to
+   the plain version's and never above the count.
 3. Forward, Cornell: 256x256, 64 spp, depth 5, NEE + MIS + Russian roulette,
    compaction calibrated from `trace_stats` as the benchmark does. The image
    must be finite with a sane mean, the launch counts of closest, anyhit and
@@ -79,6 +85,26 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    the picture), and the native OBJ loader on the mesh's OBJ file, equal to
    the Python parser's arrays, with both parse times.
 
+10. The cull-kernel route at full width (`ops.intersect.CULL_KERNEL` patched
+   on): as 8, with the list walks fed by the cull kernel: the frames of 3 and
+   5 and the mesh's forward + backward `torch.equal` to the default path's,
+   cull launched 80 times a frame and the PyTorch cull not once, s/frame and
+   launches a frame in turns (default, route, route, default).
+11. The walk profile: `profile_walk.main()` at B = 524,288 on a seeded sphere
+   of 15,488 faces (at most 128 clusters): listed and walked clusters a tile
+   on the primary and the sorted bounce-1 wavefront, the five times, the
+   cull kernel equal to the PyTorch cull and both instrumented walks equal to
+   closest; its JSON line. The only path that launches closest_dbg and
+   closest_full.
+12. The multi-process path on the one card: `launch.init` with a file store
+   brings up an NCCL group of one rank; `render_image_sharded` on the mesh
+   scene at 256x256 x 64 spp, on a mesh of one rank without a group and on
+   the NCCL group's mesh, `torch.equal` to the unsharded `render_flat_pixels`
+   image (no compaction: the configuration for which the image does not
+   depend on the pixel order); `render_spp_sharded` finite; one `fit` of 2
+   steps, 2 microbatches, with `mesh=` (the gradients all-reduced through
+   NCCL, asynchronously per microbatch) bit-equal to the same fit without.
+
 Then, on lines of their own: the kernels' JSON record, the nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA
 device. Imports no JAX.
@@ -99,7 +125,11 @@ the list walk on the same rays, plus one slab test (27 fp32 operations: per
 axis two subtractions, two products, a minimum, a maximum and two running
 extremes, then three comparisons) for every live ray against every live box
 of its table; its bytes are its rays (7 rows), the box table, the triangle
-table (and the child bounds) and its outputs, once. The gather and the
+table (and the child bounds) and its outputs, once. The cull kernel alone
+needs those slab tests and moves its rays (7 rows), the box table, and its
+lists, entries, counts and far, once. The instrumented walks compute closest's
+function on closest's operands (plus one int a tile), so their bound is
+closest's. The gather and the
 scatter-add are bound by bytes: each input read once and each output written
 once.
 """
@@ -177,15 +207,21 @@ def run_once_ms(fn):
 
 
 @contextmanager
-def fused_cull(on=True):
-    """Patch `ops.intersect.FUSED_CULL` for the block."""
+def route(flag, on=True):
+    """Patch `ops.intersect.FUSED_CULL` or `.CULL_KERNEL` (`flag`) for the
+    block."""
     from mafrixraytracing_torch.ops import intersect as oi
 
-    before, oi.FUSED_CULL = oi.FUSED_CULL, on
+    before = getattr(oi, flag)
+    setattr(oi, flag, on)
     try:
         yield
     finally:
-        oi.FUSED_CULL = before
+        setattr(oi, flag, before)
+
+
+def fused_cull(on=True):
+    return route("FUSED_CULL", on)
 
 
 @contextmanager
@@ -352,6 +388,99 @@ def cull_and_convert(scene, walk):
             torch.stack([*r[:7], far]))
 
 
+def compare_cull(fwalk, lwalk, t_min, label, timed):
+    """Kernel K on the rays of one walk: lists, counts, entries and far
+    `torch.equal` to `cull_reference` and to the operands `_prep` made with
+    the PyTorch cull. With `timed`: its time, the plain version's and its
+    bound (the larger of its bytes and of 27 operations a slab test of a live
+    ray against a live box)."""
+    import torch
+
+    from mafrixraytracing_torch.ops import intersect as oi
+
+    aabbs, rays = fwalk[-2], fwalk[-1]
+    lists, counts, entries, lrays = lwalk[-4:]
+    n_box = lists.shape[1]
+    got = oi.cull_kernel(aabbs, rays, n_box)
+    torch.cuda.synchronize()
+    want, plain_ms = run_once_ms(lambda: oi.cull_reference(aabbs, rays, n_box))
+    names = ("lists", "counts", "entries", "far")
+    same = {n: torch.equal(g, w) for n, g, w in zip(names, got, want)}
+    upto = bool((torch.where(torch.arange(n_box, device=rays.device)[None, :]
+                             < got[1][:, None], got[0] - want[0], 0) == 0).all())
+    fed = all(torch.equal(g, w) for g, w in zip(got, (lists, counts, entries, lrays[7])))
+    err = max(float((got[2] - want[2]).abs().max()), float((got[3] - want[3]).abs().max()))
+    print(f"  cull {label}: B={rays.shape[1]} boxes={n_box} survivors a tile "
+          f"{float(got[1].float().mean()):.2f} equal to plain={same} lists up to the "
+          f"count={upto} equal to the list walk's operands={fed}")
+    check(all(same.values()) and upto, f"cull kernel differs from its plain version on {label}")
+    check(fed, f"cull kernel differs from the PyTorch cull's operands on {label}")
+    if not timed:
+        return dict(max_abs_err=err)
+    live_boxes = int((aabbs[6, :n_box] > 0.5).sum())
+    slabs = int((rays[6] > t_min).sum()) * live_boxes
+    moved = (nbytes(rays) - 4 * rays.shape[1]) + nbytes(aabbs, *got)
+    t_bytes, t_flops = moved / HBM_BYTES_PER_S, slabs * FLOPS_PER_SLAB / FP32_FLOPS
+    return dict(max_abs_err=err, ms=time_ms(lambda: oi.cull_kernel(aabbs, rays, n_box)),
+                plain_ms=plain_ms, library_ms=None,
+                cull_in_pytorch_ms=time_ms(lambda: oi.cull_reference(aabbs, rays, n_box)),
+                bound_ms=1e3 * max(t_bytes, t_flops),
+                bound_by="operations" if t_flops >= t_bytes else "bytes",
+                ray_box_slabs=slabs, bytes_moved=moved)
+
+
+def print_cull(r, where):
+    print(f"  cull: kernel {r['ms']:.4f} ms against the PyTorch cull with its "
+          f"conversions {r['cull_in_pytorch_ms']:.4f} ms (once: {r['plain_ms']:.4f} ms), "
+          f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} ({r['ray_box_slabs']} ray-box "
+          f"slab tests, {r['bytes_moved']} bytes) ({where})")
+
+
+def compare_walk_stats(scene, walk, t_min, label, closest_out, timed):
+    """The counting walk and the walk without early exit on kernel A's
+    operands: `(t, idx)` bit-equal to A's (`closest_out`) and to their plain
+    versions', `walked` equal to the plain version's and at most the count.
+    -> {name: record}; with `timed`, times and A's bound."""
+    import torch
+
+    from mafrixraytracing_torch.ops import intersect as oi
+
+    ta, ia = closest_out
+    td, id_, walked = oi.closest_dbg_kernel(*walk, t_min)
+    tf, if_ = oi.closest_full_kernel(*walk, t_min)
+    torch.cuda.synchronize()
+    (tp, ip, wp), dbg_plain_ms = run_once_ms(lambda: oi.closest_dbg_reference(*walk, t_min))
+    (tq, iq), full_plain_ms = run_once_ms(lambda: oi.closest_full_reference(*walk, t_min))
+    counts = walk[2]
+    ok = dict(
+        dbg_is_closest=torch.equal(td, ta) and torch.equal(id_, ia),
+        full_is_closest=torch.equal(tf, ta) and torch.equal(if_, ia),
+        dbg_is_plain=torch.equal(td, tp) and torch.equal(id_, ip),
+        full_is_plain=torch.equal(tf, tq) and torch.equal(if_, iq),
+        walked_is_plain=torch.equal(walked, wp),
+        walked_within_count=bool((walked <= counts).all()))
+    print(f"  walk statistics {label}: B={ta.shape[0]} listed a tile "
+          f"{float(counts.float().mean()):.2f} walked a tile "
+          f"{float(walked.float().mean()):.2f} (max {int(walked.max())}) {ok}")
+    check(all(ok.values()), f"an instrumented walk disagrees on {label}: {ok}")
+    errs = {"closest_dbg": float((td - tp).abs().max()),
+            "closest_full": float((tf - tq).abs().max())}
+    if not timed:
+        return {k: dict(max_abs_err=e) for k, e in errs.items()}
+    bound = walk_bound(scene, walk, t_min, t_final=ta)
+    live = (walk[-1][6] > t_min).reshape(-1, oi.TILE).sum(dim=1)
+    staged_full = int((live * counts).sum())
+    out = {
+        "closest_dbg": dict(max_abs_err=errs["closest_dbg"], plain_ms=dbg_plain_ms,
+                            ms=time_ms(lambda: oi.closest_dbg_kernel(*walk, t_min))),
+        "closest_full": dict(max_abs_err=errs["closest_full"], plain_ms=full_plain_ms,
+                             ms=time_ms(lambda: oi.closest_full_kernel(*walk, t_min)),
+                             ray_cluster_pairs_staged=staged_full)}
+    for r in out.values():
+        r.update(library_ms=None, **bound)
+    return out
+
+
 def fused_vs_list(scene, o, d, t_max, anyhit, lwalk, list_out, t_min, label,
                   timed=True):
     """The fused kernel of `lwalk`'s path on the same rays: bit-equal to its
@@ -365,6 +494,7 @@ def fused_vs_list(scene, o, d, t_max, anyhit, lwalk, list_out, t_min, label,
     check(oi._is_fused(fwalk) and oi._is_super(fwalk) == oi._is_super(lwalk),
           "the fused operands are not those of the list walk's path")
     check(torch.equal(fwalk[-1][:7], lwalk[-1][:7]), "the two paths' rays differ")
+    cull = compare_cull(fwalk, lwalk, t_min, label, timed)
     if anyhit:
         err, occ, plain_ms = compare_anyhit(fwalk, t_min, label + ", fused",
                                             same_as=list_out)
@@ -374,7 +504,7 @@ def fused_vs_list(scene, o, d, t_max, anyhit, lwalk, list_out, t_min, label,
                                               same_as=list_out)
         result = dict(t_final=t)
     if not timed:
-        return dict(max_abs_err=err)
+        return dict(max_abs_err=err, cull=cull)
     k = 2 if anyhit else 0
     fused_kernel, list_kernel = pick(fwalk)[k], pick(lwalk)[k]
     ms_list = time_ms(lambda: list_kernel(*lwalk, t_min))
@@ -382,7 +512,7 @@ def fused_vs_list(scene, o, d, t_max, anyhit, lwalk, list_out, t_min, label,
     ms_cull = time_ms(lambda: cull_and_convert(scene, lwalk))
     bound = walk_bound(scene, lwalk, t_min, fused_walk=fwalk, **result)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                list_kernel_ms=ms_list, cull_and_convert_ms=ms_cull, **bound)
+                list_kernel_ms=ms_list, cull_and_convert_ms=ms_cull, cull=cull, **bound)
 
 
 def print_fused(name, r, where):
@@ -692,6 +822,13 @@ def phase_kernels_mesh(torch, dev, records, cornell_idx, cornell_P):
                              t_min, "mesh non-aligned")
     fused_an = fused_vs_list(scene, qo, qd, to(tmax_a), True, walk_na, occ_n,
                              t_min, "mesh non-aligned")
+    culls = [f.pop("cull") for f in (fused_c, fused_a, fused_cn, fused_an)]
+    culls[0]["max_abs_err"] = max([c["max_abs_err"] for c in culls]
+                                  + [records["cull"]["max_abs_err"]])
+    records["cull"] = culls[0]     # the mesh's 32 supercluster boxes, B = 524,288
+    print_cull(culls[0], f"mesh primary, 32 boxes, B = {B:,}")
+    print_cull(culls[1], f"mesh shadow, B = {B:,}")
+    print_cull(culls[2], f"mesh non-aligned, B = {walk_n[-1].shape[1]:,}")
     print_fused("fused_closest_super on incoherent tiles", fused_cn,
                 f"B = {walk_n[-1].shape[1]:,}")
     print_fused("fused_anyhit_super on incoherent tiles", fused_an,
@@ -815,6 +952,19 @@ def phase_kernels(torch, dev):
                              t_min, "soup")
     fused_as = fused_vs_list(soup, qo, qd, to(tmax_a), True, walk_sa, occ_s, t_min,
                              "soup")
+    # the instrumented walks on Cornell (timed, as closest is) and on the soup
+    stats = compare_walk_stats(scene, walk, t_min, "cornell primary", (t_k, idx), True)
+    stats_s = compare_walk_stats(soup, walk_s, t_min, "soup", (t_s, idx_s), True)
+    for name in ("closest_dbg", "closest_full"):
+        r, rs_ = stats[name], stats_s[name]
+        r["max_abs_err"] = max(r["max_abs_err"], rs_["max_abs_err"])
+        print(f"  {name} on the soup (B = {walk_s[-1].shape[1]:,}): kernel "
+              f"{rs_['ms']:.4f} ms against closest {time_ms(lambda: oi.closest_kernel(*walk_s, t_min)):.4f} ms")
+    culls = [f.pop("cull") for f in (fused_c, fused_a, fused_cs, fused_as)]
+    culls[0]["max_abs_err"] = max(c["max_abs_err"] for c in culls)
+    print_cull(culls[0], f"Cornell primary, 1 box, B = {B:,}")
+    print_cull(culls[1], f"Cornell shadow, B = {B:,}")
+    print_cull(culls[2], f"soup, 64 boxes, B = {walk_s[-1].shape[1]:,}")
     print_fused("fused_closest on the soup", fused_cs, f"B = {walk_s[-1].shape[1]:,}")
     print_fused("fused_anyhit on the soup", fused_as, f"B = {walk_sa[-1].shape[1]:,}")
     tab_s = packed_attr_table(soup).contiguous()
@@ -832,11 +982,13 @@ def phase_kernels(torch, dev):
     records["anyhit"] = dict(max_abs_err=max(err_a, err_as), ms=ms_a,
                              plain_ms=ms_ap, library_ms=None, **bound_a)
     check(err_g == 0.0, "unpack kernel differs on Cornell")
+    records.update(stats)
     for k, r in records.items():
         print(f"  {k}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, "
               f"{r['ray_cluster_pairs']} ray-cluster pairs needed (Cornell, "
               f"B = {B:,})")
+    records["cull"] = culls[0]
     for name, r, rs_ in (("fused_closest", fused_c, fused_cs),
                          ("fused_anyhit", fused_a, fused_as)):
         r["max_abs_err"] = max(r["max_abs_err"], rs_["max_abs_err"])
@@ -1126,22 +1278,29 @@ FUSED_FLAT = ("fused_closest", "fused_anyhit")
 FUSED_TWO_LEVEL = ("fused_closest_super", "fused_anyhit_super")
 
 
-def phase_fused(torch, list_images):
-    """The render path with the cull inside the walks: the frames of phases 3
-    and 5 again (`list_images`: their images by label), then forward +
-    backward on the mesh, each held bit for bit against the list path."""
+def phase_route(torch, list_images, flag, what, route_kernels):
+    """The render path on another route of the search (`flag`:
+    `FUSED_CULL`, the cull inside the walks, or `CULL_KERNEL`, the list walks
+    fed by the cull kernel): the frames of phases 3 and 5 again
+    (`list_images`: their images by label), then forward + backward on the
+    mesh, each held bit for bit against the default path. `route_kernels`
+    maps a scene's label to the search kernels the route must launch there;
+    every other search kernel must stay idle. -> the route's launch counts
+    of one frame."""
     from mafrixraytracing_torch import bench
     from mafrixraytracing_torch.core import rng
     from mafrixraytracing_torch.integrator import path as P
     from mafrixraytracing_torch.ops import cuda
+    from mafrixraytracing_torch.ops import intersect as oi
     from mafrixraytracing_torch.scene.builtin import cornell_box
     from mafrixraytracing_torch.scene.compiler import compile_scene
 
     W, H = WIDTH, HEIGHT
+    searches = set(FLAT + TWO_LEVEL + FUSED_FLAT + FUSED_TWO_LEVEL + ("cull",))
 
-    def counted(fused, fn):
+    def counted(on, fn):
         """(fn(), seconds, this call's launch counts) on one of the paths."""
-        with fused_cull(fused):
+        with route(flag, on):
             cuda.reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1149,20 +1308,20 @@ def phase_fused(torch, list_images):
             torch.cuda.synchronize()
             return out, time.perf_counter() - t0, dict(cuda.LAUNCHES)
 
-    def report(what, runs):
-        # runs: list, fused, fused, list
-        for name, picked in (("list", (runs[0], runs[3])), ("fused", (runs[1], runs[2]))):
+    def report(label, runs):
+        # runs: default, route, route, default
+        for name, picked in (("default", (runs[0], runs[3])), (what, (runs[1], runs[2]))):
             used = {k: v for k, v in picked[0][2].items() if v}
-            print(f"  {what}, {name} path: {picked[0][1]:.3f} and {picked[1][1]:.3f} "
+            print(f"  {label}, {name} path: {picked[0][1]:.3f} and {picked[1][1]:.3f} "
                   f"s/frame, kernel launches per frame {used}")
 
     launches = {}
-    for make_spec, label, fused_names, list_names in (
-            (cornell_box, "cornell", FUSED_FLAT, FLAT),
-            (mesh_spec, "mesh36996", FUSED_TWO_LEVEL, TWO_LEVEL)):
+    for make_spec, label, list_names in ((cornell_box, "cornell", FLAT),
+                                         (mesh_spec, "mesh36996", TWO_LEVEL)):
+        names = route_kernels[label]
         cs = compile_scene(make_spec(W, H))
         scene, camera = cs.scene, cs.camera
-        with fused_cull():
+        with route(flag):
             config, _ = bench.calibrated_config(scene, camera, W, H, DEPTH)
 
         def frame(seed):
@@ -1170,23 +1329,32 @@ def phase_fused(torch, list_images):
                 return P.render_image(scene, camera, W, H, SPP, rng.root_key(seed),
                                       config)
 
-        img, _, counts = counted(True, lambda: frame(0))
+        culls = []
+        real_cull = oi._cull
+        with mock.patch.object(oi, "_cull",
+                               lambda *a: culls.append(1) or real_cull(*a)):
+            img, _, counts = counted(True, lambda: frame(0))
         same = torch.equal(img, list_images[label])
-        print(f"  forward {label} {W}x{H} x {SPP} spp, fused: bit-equal to the list "
-              f"path's image={same}, launches {counts}")
-        check(bool(torch.isfinite(img).all()), "fused image has non-finite values")
-        check(same, f"the fused {label} frame differs from the list path's")
-        for k in fused_names + ("unpack",):
-            check(counts[k] > 0, f"kernel {k} was not launched on the fused {label} path")
-        for k in FLAT + TWO_LEVEL + tuple(set(FUSED_FLAT + FUSED_TWO_LEVEL)
-                                          - set(fused_names)):
-            check(counts[k] == 0, f"kernel {k} was launched on the fused {label} path")
-        launches.update({k: counts[k] for k in fused_names})
+        print(f"  forward {label} {W}x{H} x {SPP} spp, {what}: bit-equal to the default "
+              f"path's image={same}, calls of the PyTorch cull {len(culls)}, "
+              f"launches {counts}")
+        check(bool(torch.isfinite(img).all()), f"{what} image has non-finite values")
+        check(same, f"the {what} {label} frame differs from the default path's")
+        check(not culls, f"the {what} {label} frame called the PyTorch cull")
+        for k in names + ("unpack",):
+            check(counts[k] > 0, f"kernel {k} was not launched on the {what} {label} path")
+        for k in searches - set(names):
+            check(counts[k] == 0, f"kernel {k} was launched on the {what} {label} path")
+        if "cull" in names:
+            check(counts["cull"] == 80 == counts[names[1]] + counts[names[2]],
+                  f"the {label} frame's 80 queries did not each launch the cull kernel")
+        launches.update({k: counts[k] for k in names if k not in list_names})
         runs = [counted(f, lambda: frame(1)) for f in (False, True, True, False)]
         check(all(torch.equal(r[0], runs[0][0]) for r in runs),
               f"the {label} frames of the two paths differ at seed 1")
-        check(all(runs[0][2][k] > 0 for k in list_names),
-              f"the list path did not run its kernels on {label}")
+        check(all(runs[0][2][k] > 0 for k in list_names)
+              and runs[0][2]["cull"] == 0,
+              f"the default path did not run its kernels on {label}")
         report(f"forward {label}", runs)
 
     # forward + backward on the mesh (still `scene`), the benchmark's path
@@ -1195,14 +1363,14 @@ def phase_fused(torch, list_images):
     (img_l, grads_l), (img_f, grads_f) = runs[0][0], runs[1][0]
     same = torch.equal(img_l, img_f) and all(
         torch.equal(a, b) for a, b in zip(grads_l, grads_f))
-    print(f"  forward + backward mesh36996: gradients and image of the fused path "
-          f"bit-equal to the list path's={same}, |grad albedo|max "
+    print(f"  forward + backward mesh36996: gradients and image of the {what} path "
+          f"bit-equal to the default path's={same}, |grad albedo|max "
           f"{float(grads_f[0].abs().max()):.4g}")
-    check(same, "the fused path's gradients differ from the list path's")
+    check(same, f"the {what} path's gradients differ from the default path's")
     check(all(bool(torch.isfinite(g).all()) for g in grads_f)
-          and float(grads_f[0].abs().max()) > 0, "the fused path's gradients are off")
-    check(all(runs[1][2][k] > 0 for k in FUSED_TWO_LEVEL + ("unpack", "scatter")),
-          "the fused forward + backward did not run its kernels")
+          and float(grads_f[0].abs().max()) > 0, f"the {what} path's gradients are off")
+    check(all(runs[1][2][k] > 0 for k in names + ("unpack", "scatter")),
+          f"the {what} forward + backward did not run its kernels")
     report("forward + backward mesh36996", runs)
     return launches
 
@@ -1309,6 +1477,124 @@ def phase_entry_points(torch):
           f"arrays equal")
 
 
+def phase_walk_profile(torch):
+    """`profile_walk.main()` at the main path's wavefront size; -> the launch
+    counts of the cull kernel and the two instrumented walks on this path."""
+    from mafrixraytracing_torch import profile_walk
+    from mafrixraytracing_torch.ops import cuda
+
+    cuda.reset_launches()
+    record = profile_walk.main([], size=WIDTH)
+    launches = dict(cuda.LAUNCHES)
+    check(record["clusters"] <= 128 and record["primary"]["rays"] == WAVEFRONT,
+          "the walk profile did not run a flat scene at the main path's wavefront")
+    for w in ("primary", "bounce1"):
+        r = record[w]
+        check(r["dbg_equals_closest"] and r["full_equals_closest"]
+              and r["cull_kernel_equals_cull"] and r["walked_within_listed"],
+              f"the walk profile's equalities failed on the {w} wavefront")
+        check(set(r["ms"]) == {"cull", "cull_kernel", "closest", "closest_dbg",
+                               "closest_full"} and all(v > 0 for v in r["ms"].values()),
+              f"the walk profile's times are missing on the {w} wavefront")
+        check(0 < r["walked_per_tile"]["mean"] <= r["listed_per_tile"]["mean"],
+              f"walked clusters exceed listed clusters on the {w} wavefront")
+    for k in ("cull", "closest", "closest_dbg", "closest_full"):
+        check(launches[k] > 0, f"kernel {k} was not launched by the walk profile")
+    return {k: launches[k] for k in ("closest_dbg", "closest_full")}
+
+
+def phase_parallel(torch, dev):
+    """The multi-process modules on the one card: an NCCL group of one rank,
+    the sharded renders against the unsharded image, a sharded fit against
+    the same fit without a mesh."""
+    import shutil
+
+    from mafrixraytracing_torch.core import rng
+    from mafrixraytracing_torch.integrator import path as P
+    from mafrixraytracing_torch.ops import cuda
+    from mafrixraytracing_torch.opt import inverse
+    from mafrixraytracing_torch.parallel import launch, mesh as pmesh, render as prender
+    from mafrixraytracing_torch.scene.compiler import compile_scene
+
+    W, H = WIDTH, HEIGHT
+    tmp = tempfile.mkdtemp(prefix="mafrix_torch_parallel_")
+    try:
+        check(launch.init() is False or os.environ.get("MASTER_ADDR"),
+              "launch.init() joined a group that nothing configured")
+        t0 = time.perf_counter()
+        check(launch.init(f"file://{os.path.join(tmp, 'store')}", 1, 0) is True,
+              "launch.init did not bring up the group")
+        info = launch.process_info()
+        meshes = {"one rank, no group": pmesh.make_mesh(1),
+                  "NCCL group of one": launch.global_mesh()}
+        print(f"  process group up in {time.perf_counter() - t0:.2f} s: {info}")
+        check(info["backend"] == "nccl" and info["process_count"] == 1
+              and meshes["NCCL group of one"].group is not None,
+              "the process group is not an NCCL group of one")
+
+        cs = compile_scene(mesh_spec(W, H))
+        scene, camera = cs.scene, cs.camera
+        config = P.PathTracerConfig(max_depth=DEPTH, wavefront=WAVEFRONT)
+        key = rng.root_key(0)
+        with torch.no_grad():
+            ref = P.render_flat_pixels(scene, camera, torch.arange(W * H, device=dev),
+                                       W, H, SPP, key, config).reshape(H, W, 3)
+        check(bool(torch.isfinite(ref).all()) and 0.02 < float(ref.mean()) < 0.5,
+              "the unsharded image is off")
+        for name, m in meshes.items():
+            cuda.reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            img = prender.render_image_sharded(scene, camera, m, W, H, SPP, key, config)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in cuda.LAUNCHES.items() if v}
+            same = torch.equal(img, ref)
+            print(f"  render_image_sharded mesh36996 {W}x{H} x {SPP} spp, {name}: "
+                  f"{time.perf_counter() - t1:.3f} s, equal to the unsharded image="
+                  f"{same}, launches {counts}")
+            check(same, f"the sharded image ({name}) differs from the unsharded one")
+            for k in TWO_LEVEL + ("unpack",):
+                check(counts.get(k, 0) > 0, f"kernel {k} was not launched by the sharded render")
+        avg = prender.render_spp_sharded(scene, camera, meshes["NCCL group of one"],
+                                         W, H, 8, key, config)
+        check(avg.shape == (H, W, 3) and bool(torch.isfinite(avg).all())
+              and abs(float(avg.mean()) - float(ref.mean())) < 0.1 * float(ref.mean()),
+              "render_spp_sharded is off")
+        print(f"  render_spp_sharded 8 spp: mean {float(avg.mean()):.5f} against "
+              f"{float(ref.mean()):.5f} at {SPP} spp")
+
+        # a sharded fit of 2 steps, 2 microbatches, against the same without a mesh
+        fs = compile_scene(mesh_spec(W, H, scale=FIT_SCALE))
+        with torch.no_grad():
+            target = P.render_image(fs.scene, fs.camera, W, H, FIT_SPP, rng.root_key(0),
+                                    config)
+            albedo = fs.scene.mat_albedo.clone()
+            albedo[1] = torch.tensor([0.1, 0.1, 0.1], device=dev)
+            start = fs.scene.replace(mat_albedo=albedo)
+        names = ("mat_albedo", "light_radiance", "mesh_vertices")
+        common = dict(param_names=names, steps=2, lr=FIT_LR, spp=FIT_SPP,
+                      key=rng.root_key(3), config=config, smooth_geometry=4,
+                      overlap_microbatches=2)
+        plain, plain_losses = inverse.fit(start, fs.camera, target, **common)
+        cuda.reset_launches()
+        t2 = time.perf_counter()
+        sharded, losses = inverse.fit(start, fs.camera, target,
+                                      mesh=meshes["NCCL group of one"], **common)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        same = losses == plain_losses and all(
+            torch.equal(getattr(sharded, n), getattr(plain, n)) for n in names)
+        print(f"  fit with mesh=, 2 steps x 2 microbatches of {FIT_SPP // 2} spp: "
+              f"{time.perf_counter() - t2:.3f} s, losses {[round(l, 5) for l in losses]}, "
+              f"bit-equal to the fit without a mesh={same}, launches {counts}")
+        check(same, "the fit with a mesh of one rank differs from the fit without")
+        for k in TWO_LEVEL + ("unpack", "scatter"):
+            check(counts.get(k, 0) > 0, f"kernel {k} was not launched by the sharded fit")
+    finally:
+        launch.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1337,7 +1623,8 @@ def main() -> int:
     from mafrixraytracing_torch.scene.builtin import cornell_box
 
     print("[3] forward, Cornell")
-    flat, two_level, fused = FLAT, TWO_LEVEL, FUSED_FLAT + FUSED_TWO_LEVEL
+    flat, two_level = FLAT, TWO_LEVEL
+    fused = FUSED_FLAT + FUSED_TWO_LEVEL + ("cull",)   # the other routes' kernels
     launches, _, cornell_img = phase_forward(torch, dev, cornell_box, "cornell",
                                              launched=flat + ("unpack",),
                                              idle=two_level + fused)
@@ -1361,11 +1648,23 @@ def main() -> int:
     launches["scatter"] = phase_fit(torch, dev)["scatter"]
 
     print("[8] the fused-cull search at full width")
-    launches.update(phase_fused(torch, {"cornell": cornell_img,
-                                        "mesh36996": mesh_img}))
+    images = {"cornell": cornell_img, "mesh36996": mesh_img}
+    launches.update(phase_route(torch, images, "FUSED_CULL", "fused",
+                                {"cornell": FUSED_FLAT, "mesh36996": FUSED_TWO_LEVEL}))
 
     print("[9] Whitted, motion blur, the native OBJ loader")
     phase_entry_points(torch)
+
+    print("[10] the cull-kernel route at full width")
+    launches.update(phase_route(torch, images, "CULL_KERNEL", "cull-kernel",
+                                {"cornell": ("cull",) + FLAT,
+                                 "mesh36996": ("cull",) + TWO_LEVEL}))
+
+    print("[11] the walk profile (cull kernel and instrumented walks)")
+    launches.update(phase_walk_profile(torch))
+
+    print("[12] the multi-process path on one card")
+    phase_parallel(torch, dev)
 
     pallas = "mafrixraytracing_tpu/ops/intersect_pallas.py"
     fused_cu = "mafrixraytracing_torch/csrc/intersect_fused.cu"
@@ -1382,7 +1681,13 @@ def main() -> int:
                "fused_closest_super": (fused_cu, pallas + ":709"),
                "fused_anyhit_super": (fused_cu, pallas + ":769"),
                "scatter": ("mafrixraytracing_torch/csrc/scatter.cu",
-                           "experiments/exp_scatter.py:52")}
+                           "experiments/exp_scatter.py:52"),
+               "cull": ("mafrixraytracing_torch/csrc/cull.cu",
+                        "experiments/exp_cullkernel.py:78"),
+               "closest_dbg": ("mafrixraytracing_torch/csrc/intersect_stats.cu",
+                               "experiments/exp6.py:48"),
+               "closest_full": ("mafrixraytracing_torch/csrc/intersect_stats.cu",
+                                "experiments/exp6.py:104")}
     kernels = [dict(name=k, route="cuda", source=sources[k][0],
                     replaces=sources[k][1], launches=launches[k], **records[k])
                for k in sources]

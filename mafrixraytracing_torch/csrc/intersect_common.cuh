@@ -2,6 +2,8 @@
 // intersect_fused.cu): the ray record, the staging of one packed cluster into
 // shared memory, the plane + barycentric ray-triangle test, the block-wide
 // reductions, and the four walks themselves as __device__ functions.
+// intersect_stats.cu instantiates the closest-hit walk with a counter and
+// without its early exit.
 //
 // A walk takes its tile's list, entries and count by pointer and value, so
 // the list may live in global memory (the cull ran in PyTorch: kernels A, B,
@@ -101,17 +103,29 @@ struct SuperSmem {
 };
 
 // The closest-hit walk over a tile's n listed clusters, front to back (kernels
-// A and F). Every thread of the block calls it; best_t starts at q.tmax and
-// best_i at -1.
-__device__ __forceinline__ void walk_closest(const float* __restrict__ tri, const int* list,
-                                             const float* entry, int n, const Ray& q,
-                                             float t_min, WalkSmem& sm, float& best_t,
-                                             int& best_i) {
-  for (int k = 0; k < n; ++k) {
-    // a later cluster can only help a ray whose limit min(best, far) lies at
-    // or beyond its entry; inclusive, or flat clusters are skipped
-    const float worst = block_max(fminf(best_t, q.far), sm.red);
-    if (!(entry[k] <= worst)) break;
+// A and F, and the two instrumented kernels of intersect_stats.cu). Every
+// thread of the block calls it; best_t starts at q.tmax and best_i at -1.
+// Returns the number of listed clusters the block staged before it stopped
+// (the same for every thread; A and F drop it). The exit is tested before
+// every cluster, so the number is exact: the first k with entry[k] beyond
+// the tile's limit, or n. With EARLY_EXIT false every listed cluster is
+// staged and tested: the hits are the same, since a skipped cluster holds no
+// closer hit for any ray of the tile.
+template <bool EARLY_EXIT = true>
+__device__ __forceinline__ int walk_closest(const float* __restrict__ tri, const int* list,
+                                            const float* entry, int n, const Ray& q,
+                                            float t_min, WalkSmem& sm, float& best_t,
+                                            int& best_i) {
+  int k = 0;
+  for (; k < n; ++k) {
+    if constexpr (EARLY_EXIT) {
+      // a later cluster can only help a ray whose limit min(best, far) lies at
+      // or beyond its entry; inclusive, or flat clusters are skipped
+      const float worst = block_max(fminf(best_t, q.far), sm.red);
+      if (!(entry[k] <= worst)) break;
+    } else {
+      __syncthreads();  // the last cluster's tests are done with sm.tri
+    }
     const int c = list[k];
     stage_cluster(sm.tri, tri, c);
     __syncthreads();
@@ -125,6 +139,7 @@ __device__ __forceinline__ void walk_closest(const float* __restrict__ tri, cons
       }
     }
   }
+  return k;
 }
 
 // The any-hit walk over a tile's n listed clusters (kernels B and G).

@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: dict[str, int] = {"closest": 0, "anyhit": 0, "unpack": 0,
                             "closest_super": 0, "anyhit_super": 0, "scatter": 0,
                             "fused_closest": 0, "fused_anyhit": 0,
-                            "fused_closest_super": 0, "fused_anyhit_super": 0}
+                            "fused_closest_super": 0, "fused_anyhit_super": 0,
+                            "cull": 0, "closest_dbg": 0, "closest_full": 0}
 
 _lib = None
 
@@ -114,11 +115,15 @@ def lib() -> ctypes.CDLL:
         handle.mfx_fused_anyhit.argtypes = [P, P, P, I, I, F, P, P]
         handle.mfx_fused_closest_super.argtypes = [P, P, P, P, I, I, I, F, F, F, P, P, P]
         handle.mfx_fused_anyhit_super.argtypes = [P, P, P, P, I, I, I, F, F, F, P, P]
+        handle.mfx_cull.argtypes = [P, P, I, I, P, P, P, P, P]
+        handle.mfx_closest_dbg.argtypes = [P, P, P, P, P, I, I, F, P, P, P, P]
+        handle.mfx_closest_full.argtypes = [P, P, P, P, P, I, I, F, P, P, P]
         for fn in (handle.mfx_closest, handle.mfx_anyhit, handle.mfx_unpack,
                    handle.mfx_closest_super, handle.mfx_anyhit_super,
                    handle.mfx_scatter, handle.mfx_fused_closest,
                    handle.mfx_fused_anyhit, handle.mfx_fused_closest_super,
-                   handle.mfx_fused_anyhit_super):
+                   handle.mfx_fused_anyhit_super, handle.mfx_cull,
+                   handle.mfx_closest_dbg, handle.mfx_closest_full):
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib

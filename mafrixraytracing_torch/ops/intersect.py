@@ -28,6 +28,20 @@ lists equal `_cull`'s, so they agree bit for bit with A, B, D, E fed by
 `_cull`. More than 128 boxes raise `ValueError`; the fused path never drops to
 the list path on its own.
 
+With `CULL_KERNEL` set (off by default too) the list path keeps its walks (A,
+B, D, E) and takes its lists from kernel K (`cull_kernel`, `csrc/cull.cu`: the
+same block-wide cull as a kernel of its own, one launch a query) in place of
+`_cull`. K's lists, counts, entries and `far` equal `_cull`'s bit for bit, so
+the three routes agree bit for bit. `cull_lists` dispatches: K for CUDA
+tensors, `cull_reference` (`_cull` on the packed table) for CPU tensors.
+
+Two instrumented walks, `closest_dbg_kernel` and `closest_full_kernel`
+(`csrc/intersect_stats.cu`), are kernel A with a counter of the clusters a
+tile walked and kernel A without its early exit. Only
+`mafrixraytracing_torch.profile_walk` launches them; their plain versions
+(`closest_dbg_reference`, `closest_full_reference`) model the walk step by
+step.
+
 Around them, as in the JAX package: mega triangles (huge walls and floors,
 excluded from the clusters) are tested densely first and cap `t_max`
 (`_mega_hits`); spheres are merged densely as index T + s. The search is
@@ -67,7 +81,11 @@ SUPER_MIN_C = 128
 # Cull inside the walk's block (kernels F-I) instead of `_cull` in PyTorch. A
 # module variable that callers patch; off by default, as in the JAX package.
 FUSED_CULL = False
-CP = 128            # box slots of the fused kernels' table (pack_aabbs)
+# The list path's cull as one kernel launch (kernel K) instead of `_cull` in
+# PyTorch; the walks stay A, B, D, E. Off by default; not together with
+# FUSED_CULL.
+CULL_KERNEL = False
+CP = 128            # box slots of the packed box table (pack_aabbs)
 AABB_ROWS = 8       # its rows: min xyz, max xyz, live, pad
 BOUNDS_ROWS = 7     # rows per supercluster in pack_bounds: min xyz, max xyz, live
 # Kernels D and E widen the two comparisons of their child refinement by this
@@ -123,14 +141,15 @@ def pack_bounds(scene) -> torch.Tensor:
 
 
 def pack_aabbs(cmin: torch.Tensor, cmax: torch.Tensor) -> torch.Tensor:
-    """(8, CP) component-major box table of the fused kernels: rows [min x,
+    """(8, CP) component-major box table of the fused kernels and of the
+    cull kernel: rows [min x,
     y, z, max x, y, z, live, pad] across CP = 128 slots. Empty boxes carry
     the +-3e38 sentinels, whose slabs overflow and would pass the interval
     test: the live row masks them, as in `_cull`. Slots past the last box
     are zero (live 0). More than CP boxes raise `ValueError`."""
     C = cmin.shape[0]
     if C > CP:
-        raise ValueError(f"the fused cull takes at most {CP} boxes, got {C}")
+        raise ValueError(f"the packed box table takes at most {CP} boxes, got {C}")
     live = (cmin[:, 0] <= cmax[:, 0]).to(torch.float32)
     rows = torch.cat([cmin.t(), cmax.t(), live[None, :],
                       torch.zeros_like(live)[None, :]])  # (8, C)
@@ -182,6 +201,55 @@ def _cull(o: V3, d: V3, t_max, cmin, cmax):
     entries, lists = torch.sort(tile_entry, dim=1, stable=True)
     counts = (tile_entry < BIG).sum(dim=1)
     return lists, counts, entries, far
+
+
+def cull_reference(aabbs, rays, n_box: int = CP):
+    """Plain version of kernel K: `_cull` on the first n_box boxes of the
+    packed (8, CP) table for rays (8, B) = [o, d, tmax, unused], B a multiple
+    of TILE. Returns
+      lists   (tiles, n_box) int32 box ids, front to back, survivors first
+      counts  (tiles,)       int32 number of survivors
+      entries (tiles, n_box) f32 tile-min entry distance per sorted slot
+      far     (B,)           f32 exit of the ray's last surviving box, capped
+                             at tmax
+    The columns from `counts` on hold the boxes no ray of the tile can meet,
+    by ascending id, with entry BIG; the walks never read them. With n_box =
+    CP the table's unused slots (live 0) are such boxes too."""
+    o, d = V3(rays[0], rays[1], rays[2]), V3(rays[3], rays[4], rays[5])
+    lists, counts, entries, far = _cull(o, d, rays[6], *_unpack_aabbs(aabbs, n_box))
+    return (lists.to(torch.int32), counts.to(torch.int32), entries.contiguous(),
+            far)
+
+
+def cull_kernel(aabbs, rays, n_box: int = CP):
+    """Launch kernel K (csrc/cull.cu). Same contract as `cull_reference`, to
+    which it is bit-equal: rows of n_box columns, so that kernels A, B, D and
+    E read them with the stride they already take."""
+    B = rays.shape[1]
+    if not 0 <= n_box <= CP:
+        raise ValueError(f"the cull kernel takes at most {CP} boxes, got {n_box}")
+    if B % TILE:
+        raise ValueError(f"ray batch {B} is not a multiple of {TILE}")
+    cuda.require(aabbs, "aabbs", torch.float32, (AABB_ROWS, CP))
+    cuda.require(rays, "rays", torch.float32, (8, B))
+    tiles = B // TILE
+    lists = torch.empty((tiles, n_box), dtype=torch.int32, device=rays.device)
+    entries = torch.empty((tiles, n_box), dtype=torch.float32, device=rays.device)
+    counts = torch.empty((tiles,), dtype=torch.int32, device=rays.device)
+    far = torch.empty((B,), dtype=torch.float32, device=rays.device)
+    err = cuda.lib().mfx_cull(
+        aabbs.data_ptr(), rays.data_ptr(), B, n_box, lists.data_ptr(),
+        entries.data_ptr(), counts.data_ptr(), far.data_ptr(), cuda.stream_of(rays))
+    cuda.check(err, "cull")
+    cuda.LAUNCHES["cull"] += 1
+    return lists, counts, entries, far
+
+
+def cull_lists(aabbs, rays, n_box: int = CP):
+    """Kernel K for CUDA tensors, its plain version for CPU tensors."""
+    if rays.is_cuda:
+        return cull_kernel(aabbs, rays, n_box)
+    return cull_reference(aabbs, rays, n_box)
 
 
 def _mega_hits(scene, o: V3, d: V3, t_min: float, t_max):
@@ -328,6 +396,71 @@ def anyhit_super_reference(tri, bounds, lists, counts, entries, rays,
                             group=SUPER)
 
 
+def _walk_model(tri, lists, counts, entries, rays, t_min: float,
+                early_exit: bool):
+    """Kernel A's walk, step by step: at step k every tile that is still
+    walking tests its k-th listed cluster against its 128 rays and keeps, per
+    ray, the smallest (t, index) pair. With `early_exit` a tile stops at the
+    first k whose entry lies beyond the max over its rays of min(best t, far)
+    (a ray with a NaN there does not count, as in the kernel's `fmaxf`), else
+    at its count. Returns (t, idx, walked): A's outputs and, per tile, the
+    number of clusters tested."""
+    B = rays.shape[1]
+    tiles = B // TILE
+    dev = rays.device
+    r = rays.reshape(8, tiles, TILE)
+    tmax, far = r[6], r[7]
+    best_t = tmax.clone()
+    best_i = torch.full((tiles, TILE), -1, dtype=torch.int32, device=dev)
+    walked = torch.zeros((tiles,), dtype=torch.int32, device=dev)
+    active = torch.ones((tiles,), dtype=torch.bool, device=dev)
+    lane = torch.arange(CLUSTER_SIZE, dtype=torch.int32, device=dev)
+    chunk = max(1, _REF_PAIRS // (TILE * CLUSTER_SIZE))
+    for k in range(int(counts.max()) if tiles else 0):
+        active = active & (k < counts)
+        if early_exit:
+            limit = torch.fmin(best_t, far)
+            worst = torch.where(limit.isnan(), -torch.inf, limit).amax(dim=1)
+            active = active & (entries[:, k] <= worst)
+        ids = active.nonzero()[:, 0]
+        if ids.numel() == 0:
+            break
+        walked[ids] += 1
+        for s in range(0, ids.numel(), chunk):
+            sel = ids[s:s + chunk]
+            c = lists[sel, k].long()
+            comp = tri[c]                                  # (n, 12, 128)
+            t, ok = _plane_terms(
+                tuple(r[j][sel][:, :, None] for j in range(6)),
+                tuple(comp[:, j, None, :] for j in range(COMP)))
+            bt, bi = best_t[sel][:, :, None], best_i[sel][:, :, None]
+            gid = (c[:, None, None] * CLUSTER_SIZE).to(torch.int32) + lane
+            better = ok & (t > t_min) & ((t < bt) | ((t == bt) & (gid < bi)))
+            tt = torch.where(better, t, torch.inf)
+            m = tt.amin(dim=2)
+            mi = torch.where(better & (tt == m[:, :, None]), gid, _INT_MAX).amin(dim=2)
+            upd = better.any(dim=2)
+            best_t[sel] = torch.where(upd, m, bt[:, :, 0])
+            best_i[sel] = torch.where(upd, mi, bi[:, :, 0])
+    hit = best_t < tmax
+    return (best_t.reshape(B), torch.where(hit, best_i, -1).reshape(B), walked)
+
+
+def closest_dbg_reference(tri, lists, counts, entries, rays, t_min: float):
+    """Plain version of `closest_dbg_kernel`: kernel A's (t, idx) and, per
+    tile, `walked` (tiles,) int32: how many of its listed clusters the walk
+    tested before its early exit. The exit is tested before every cluster, so
+    the number is exact and at most `counts` (the TPU kernel tests every four
+    clusters, so its number is a multiple of four capped at the count)."""
+    return _walk_model(tri, lists, counts, entries, rays, t_min, True)
+
+
+def closest_full_reference(tri, lists, counts, entries, rays, t_min: float):
+    """Plain version of `closest_full_kernel`: kernel A's (t, idx) from a walk
+    that tests every listed cluster (no early exit)."""
+    return _walk_model(tri, lists, counts, entries, rays, t_min, False)[:2]
+
+
 def refine_children(bounds, rays, limit) -> torch.Tensor:
     """The child refinement of kernels D and E in plain PyTorch: (B, S, 16)
     bool, True where ray b can meet child j of supercluster s within
@@ -402,6 +535,39 @@ def anyhit_kernel(tri, lists, counts, entries, rays, t_min: float):
     return occ.bool()
 
 
+def closest_dbg_kernel(tri, lists, counts, entries, rays, t_min: float):
+    """Launch the counting walk (csrc/intersect_stats.cu). Same contract as
+    `closest_dbg_reference`: kernel A's (t, idx) plus walked (tiles,) int32."""
+    _check_walk_args(tri, lists, counts, entries, rays)
+    B = rays.shape[1]
+    t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
+    i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
+    walked = torch.empty((B // TILE,), dtype=torch.int32, device=rays.device)
+    err = cuda.lib().mfx_closest_dbg(
+        tri.data_ptr(), lists.data_ptr(), counts.data_ptr(), entries.data_ptr(),
+        rays.data_ptr(), B, lists.shape[1], float(t_min), t_out.data_ptr(),
+        i_out.data_ptr(), walked.data_ptr(), cuda.stream_of(rays))
+    cuda.check(err, "closest_dbg")
+    cuda.LAUNCHES["closest_dbg"] += 1
+    return t_out, i_out, walked
+
+
+def closest_full_kernel(tri, lists, counts, entries, rays, t_min: float):
+    """Launch the walk without early exit (csrc/intersect_stats.cu). Same
+    contract as `closest_full_reference`."""
+    _check_walk_args(tri, lists, counts, entries, rays)
+    B = rays.shape[1]
+    t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
+    i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
+    err = cuda.lib().mfx_closest_full(
+        tri.data_ptr(), lists.data_ptr(), counts.data_ptr(), entries.data_ptr(),
+        rays.data_ptr(), B, lists.shape[1], float(t_min), t_out.data_ptr(),
+        i_out.data_ptr(), cuda.stream_of(rays))
+    cuda.check(err, "closest_full")
+    cuda.LAUNCHES["closest_full"] += 1
+    return t_out, i_out
+
+
 def _check_super_args(tri, bounds, lists, counts, entries, rays):
     C, S = tri.shape[0], bounds.shape[0]
     B = rays.shape[1]
@@ -460,8 +626,7 @@ def anyhit_super_kernel(tri, bounds, lists, counts, entries, rays,
 def _fused_walk(tri, aabbs, rays, n_box: int):
     """`_cull` on the first n_box boxes of the packed table -> the list
     walk's (lists, counts, entries, rays with `far` in row 7)."""
-    o, d = V3(rays[0], rays[1], rays[2]), V3(rays[3], rays[4], rays[5])
-    lists, counts, entries, far = _cull(o, d, rays[6], *_unpack_aabbs(aabbs, n_box))
+    lists, counts, entries, far = cull_reference(aabbs, rays, n_box)
     return lists, counts, entries, torch.cat([rays[:7], far[None]])
 
 
@@ -591,6 +756,22 @@ def any_hit(tri, lists, counts, entries, rays, t_min: float):
     return anyhit_reference(tri, lists, counts, entries, rays, t_min)
 
 
+def closest_dbg_hit(tri, lists, counts, entries, rays, t_min: float):
+    """The counting walk's kernel for CUDA tensors, its plain version for CPU
+    tensors."""
+    if rays.is_cuda:
+        return closest_dbg_kernel(tri, lists, counts, entries, rays, t_min)
+    return closest_dbg_reference(tri, lists, counts, entries, rays, t_min)
+
+
+def closest_full_hit(tri, lists, counts, entries, rays, t_min: float):
+    """The full walk's kernel for CUDA tensors, its plain version for CPU
+    tensors."""
+    if rays.is_cuda:
+        return closest_full_kernel(tri, lists, counts, entries, rays, t_min)
+    return closest_full_reference(tri, lists, counts, entries, rays, t_min)
+
+
 def closest_super_hit(tri, bounds, lists, counts, entries, rays, t_min: float):
     """Kernel D for CUDA tensors, its plain version for CPU tensors."""
     if rays.is_cuda:
@@ -643,7 +824,7 @@ def fused_any_super_hit(tri, bounds, aabbs, rays, t_min: float):
 
 
 def _prep(scene, o: V3, d: V3, t_min: float, t_max, anyhit: bool,
-          fused: bool = False):
+          fused: bool = False, cull_kernel: bool = False):
     """Detach, pad to a TILE multiple (dead padding rays), run the dense
     mega test (capping t_max so the cull prunes everything behind the first
     mega hit), cull and pack. Returns the walk's operands plus what the
@@ -652,7 +833,13 @@ def _prep(scene, o: V3, d: V3, t_min: float, t_max, anyhit: bool,
     (`pack_bounds` second); else those of kernels A and B. With `fused` there
     is no cull here: the operands are those of kernels F and G, or H and I
     (the packed box table in place of lists, counts and entries; the rays'
-    `far` row is zero and unread)."""
+    `far` row is zero and unread). With `cull_kernel` the operands are the
+    list walks' and the lists come from `cull_lists` (kernel K) on the packed
+    box table in place of `_cull`; more than 128 boxes raise `ValueError`, as
+    does asking for both."""
+    if fused and cull_kernel:
+        raise ValueError("FUSED_CULL and CULL_KERNEL are two routes of one "
+                         "search: set at most one")
     use_super = scene.cluster_min.shape[0] > SUPER_MIN_C
     o = o.map(torch.Tensor.detach)
     d = d.map(torch.Tensor.detach)
@@ -685,6 +872,13 @@ def _prep(scene, o: V3, d: V3, t_min: float, t_max, anyhit: bool,
         rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z, t_max_k,
                             torch.zeros_like(t_max_k)])
         walk = (*packed, pack_aabbs(*boxes), rays)
+    elif cull_kernel:
+        rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z, t_max_k,
+                            torch.zeros_like(t_max_k)])
+        lists, counts, entries, far = cull_lists(pack_aabbs(*boxes), rays,
+                                                 boxes[0].shape[0])
+        rays[7] = far
+        walk = (*packed, lists, counts, entries, rays)
     else:
         lists, counts, entries, far = _cull(o, d, t_max_k, *boxes)
         rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z, t_max_k, far])
@@ -719,13 +913,15 @@ def _searches(walk):
 @torch.no_grad()
 def find_closest_soa(scene, o: V3, d: V3, t_min: float, t_max, times=None):
     """Closest hit per ray: clustered triangles through kernel A (kernel D
-    on the two-level path; F or H with `FUSED_CULL`), mega triangles and
+    on the two-level path; F or H with `FUSED_CULL`; lists from kernel K with
+    `CULL_KERNEL`), mega triangles and
     spheres merged densely. `times` (B,) shifts the spheres by their
     velocities (motion blur; the clustered triangles are static).
     Returns (t (B,) f32, BIG on a miss; idx (B,) int64: triangle [0, T),
     sphere T + s, -1 on a miss). Not differentiable by design."""
     walk, B, t_max_arr, mega_t, mega_idx = _prep(scene, o, d, t_min, t_max,
-                                                 anyhit=False, fused=FUSED_CULL)
+                                                 anyhit=False, fused=FUSED_CULL,
+                                                 cull_kernel=CULL_KERNEL)
     tt, ti = _searches(walk)[0](*walk, t_min)
     tt, ti = tt[:B], ti[:B].long()
     tt = torch.where(ti >= 0, tt, BIG)
@@ -750,7 +946,8 @@ def occluded_soa(scene, o: V3, d: V3, t_min: float, t_max, times=None):
     `FUSED_CULL`), mega triangles and spheres densely; `times` as in
     `find_closest_soa`."""
     walk, B, t_max_arr, mega_t, mega_idx = _prep(scene, o, d, t_min, t_max,
-                                                 anyhit=True, fused=FUSED_CULL)
+                                                 anyhit=True, fused=FUSED_CULL,
+                                                 cull_kernel=CULL_KERNEL)
     occ = _searches(walk)[1](*walk, t_min)[:B] | (mega_idx >= 0)
     if scene.num_live_spheres > 0:
         st, _ = closest_sphere_soa(scene, o.map(torch.Tensor.detach),

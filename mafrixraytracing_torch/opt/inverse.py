@@ -6,9 +6,21 @@ renderer is forward-only; this is the capability the system exists for: pixel
 gradients flow to material albedo and emission, light radiance and vertex
 positions. A train step renders the flat pixel batch, takes the relative-L2
 loss against the target, back-propagates, optionally smooths the vertex
-gradient, and applies Adam. The JAX package's `mesh` argument, its
-`shard_map` over the ray axis and the gradient all-reduce belong to the
-parallel modules and are not here.
+gradient, and applies Adam.
+
+On several devices, with a `mesh` (`parallel.mesh.RayMesh`, one process per
+device), the step is data-parallel over the ray axis, as the JAX package's
+`shard_map` step is: every rank renders its contiguous shard of the pixel ids (padded to a
+multiple of the world size with repeated pixels) against its shard of the
+target, and loss and gradients are averaged over the ranks once per
+microbatch. Each microbatch's all-reduce is started asynchronously as soon as
+its backward is done and waited for only before the smoothing and the
+optimizer step, so it runs under the next microbatch's forward and backward:
+that is what `overlap_microbatches` is for. Every rank then takes the same
+Adam step on the same averaged gradient, so the ranks' parameters stay equal
+bit for bit. The mean of the shards' gradients is the gradient of the whole
+image's loss up to float rounding (and to the repeated padding pixels, which
+count twice).
 
 On the card every colliding gather of the step (the attribute fetch, the
 light rows, the vertex gather) sums its backward with the deterministic
@@ -109,7 +121,7 @@ def image_loss(img: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 def loss_and_grads(params: dict, scene, camera, target: torch.Tensor,
                    key: torch.Tensor, spp: int,
                    config: PathTracerConfig = PathTracerConfig(),
-                   overlap_microbatches: int = 1):
+                   overlap_microbatches: int = 1, mesh=None):
     """The loss of the render of `scene` overlaid with `params` against the
     (H, W, 3) `target`, and its gradient with respect to every parameter ->
     (loss, {name: gradient}), both detached. With M = `overlap_microbatches`
@@ -117,24 +129,46 @@ def loss_and_grads(params: dict, scene, camera, target: torch.Tensor,
     spp / M samples each (sample offsets m * spp / M: the sub-sample sets
     partition the sample indices, so no RNG stream is reused), and the
     gradients are averaged: the same target, a slightly higher-variance
-    gradient."""
+    gradient. With `mesh` this rank renders its shard of the padded pixel ids
+    and every microbatch's loss and gradients are averaged over the ranks,
+    each all-reduce started as its backward ends and awaited after the last
+    microbatch; a mesh of one rank gives the bits of no mesh."""
     M = overlap_microbatches
     if M < 1 or spp % M:
         raise ValueError(f"overlap_microbatches={M} must divide spp={spp}")
     height, width = target.shape[:2]
-    ids = torch.arange(width * height, device=target.device)
-    tflat = target.reshape(width * height, 3)
+    B = width * height
+    ids = torch.arange(B, device=target.device)
+    tflat = target.reshape(B, 3)
+    if mesh is not None:
+        ids = torch.arange(-(-B // mesh.world) * mesh.world, device=target.device) % B
+        ids = ids[mesh.shard(ids.shape[0])]
+        tflat = tflat[ids]
     names, leaves = list(params), list(params.values())
     sub = spp // M
     loss, grads = None, None
+    parts, pending = [], []   # with a mesh: the microbatches still being summed
     for m in range(M):
         s = apply_params(scene, params)
         img = render_flat_pixels(s, camera, ids, width, height, sub, key, config,
                                  sample_offset=m * sub)
         l_m = image_loss(img, tflat)
         g_m = torch.autograd.grad(l_m, leaves)
+        if mesh is not None:
+            # summed in place over the ranks: a gradient may be a strided view
+            # of a larger buffer, which a collective cannot reduce in place
+            part = [l_m.detach().clone(), *(g.contiguous() for g in g_m)]
+            pending += mesh.sum_start(part)
+            parts.append(part)
+            continue
         loss = l_m.detach() if loss is None else loss + l_m.detach()
         grads = list(g_m) if grads is None else [a + b for a, b in zip(grads, g_m)]
+    if mesh is not None:
+        mesh.finish(pending)
+        for part in parts:
+            l_m, *g_m = (t / mesh.world for t in part)
+            loss = l_m if loss is None else loss + l_m
+            grads = g_m if grads is None else [a + b for a, b in zip(grads, g_m)]
     if M > 1:
         loss = loss * (1.0 / M)
         grads = [g * (1.0 / M) for g in grads]
@@ -143,18 +177,20 @@ def loss_and_grads(params: dict, scene, camera, target: torch.Tensor,
 
 def make_train_step(optimizer: torch.optim.Optimizer, spp: int,
                     config: PathTracerConfig = PathTracerConfig(),
-                    smooth_geometry: int = 0, overlap_microbatches: int = 1):
+                    smooth_geometry: int = 0, overlap_microbatches: int = 1,
+                    mesh=None):
     """Build the train step
         (params, scene, camera, target, key) -> (loss, grad_norm)
     which updates `params` (a dict of leaf tensors that `optimizer` holds) in
     place. `target` is the (H, W, 3) linear-radiance target; `grad_norm` is
     the global L2 norm of the gradients after smoothing (the in-run training
     scalar next to the loss). See `loss_and_grads` for
-    `overlap_microbatches`."""
+    `overlap_microbatches` and `mesh`: with a mesh, loss and gradient norm
+    are those of the averaged gradient, the same on every rank."""
 
     def train_step(params, scene, camera, target, key):
         loss, grads = loss_and_grads(params, scene, camera, target, key, spp,
-                                     config, overlap_microbatches)
+                                     config, overlap_microbatches, mesh)
         if smooth_geometry and "mesh_vertices" in grads:
             grads["mesh_vertices"] = smooth_vertex_grads(
                 scene, grads["mesh_vertices"], iters=smooth_geometry)
@@ -194,10 +230,15 @@ def fit(
     checkpoint_every: int = 25,
     smooth_geometry: int = 0,
     overlap_microbatches: int = 1,
+    mesh=None,
 ):
     """Optimize `param_names` of `scene` so its render matches `target`, on
     the scene's device. Returns (fitted_scene, losses).
 
+    - `mesh` (`parallel.launch.global_mesh()`) shards every step's pixels
+      over the ranks; every rank calls `fit` with the same arguments and gets
+      the same result. Only rank 0 prints and writes the checkpoint; every
+      rank reads it.
     - `log_every=N` prints a line every N steps: step, loss, global gradient
       norm, steps/s, and rays/s (pixels * spp * ~2 queries per bounce).
     - `smooth_geometry=N` Laplacian-smooths the `mesh_vertices` gradient with
@@ -217,7 +258,9 @@ def fit(
     optimizer = _adam(params, lr)
     step_fn = make_train_step(optimizer, spp, config,
                               smooth_geometry=smooth_geometry,
-                              overlap_microbatches=overlap_microbatches)
+                              overlap_microbatches=overlap_microbatches,
+                              mesh=mesh)
+    lead = mesh is None or mesh.rank == 0
     start = 0
     if checkpoint_path is not None:
         resumed = ckpt.load_fit_state(checkpoint_path, params, optimizer)
@@ -230,7 +273,7 @@ def fit(
         key, sub = rng.split(key)
         loss, gnorm = step_fn(params, scene, camera, target, sub)
         losses.append(float(loss))
-        if log_every and ((i - start) % log_every == 0 or i == steps - 1):
+        if lead and log_every and ((i - start) % log_every == 0 or i == steps - 1):
             now = time.perf_counter()
             dt = max(now - t_prev, 1e-9) / max(log_every, 1)
             t_prev = now
@@ -240,7 +283,10 @@ def fit(
                   f"~{rays / 1e6:.2f}M rays/s")
         if checkpoint_path is not None and (
                 (i + 1) % checkpoint_every == 0 or i + 1 == steps):
-            ckpt.save_fit_state(checkpoint_path, params, optimizer, i + 1, key)
+            if lead:
+                ckpt.save_fit_state(checkpoint_path, params, optimizer, i + 1, key)
+            if mesh is not None:
+                mesh.barrier()   # a restart on any rank finds the file whole
         if callback is not None:
             callback(i, losses[-1], params)
     with torch.no_grad():

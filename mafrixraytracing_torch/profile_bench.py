@@ -1,6 +1,6 @@
 """Profile the benchmark's configuration on one CUDA card with torch.profiler.
 
-    python -m mafrixraytracing_torch.profile_bench [--fit] [--fused] [TRACE_DIR]
+    python -m mafrixraytracing_torch.profile_bench [--fit] [--fused | --cull-kernel] [TRACE_DIR]
 
 Calibrates and warms up the benchmark's 256x256 x 64 spp, depth 5 cell
 (Cornell, or with BENCH_OBJ=<path> the `mesh_scene` around that OBJ file;
@@ -11,7 +11,9 @@ BENCH_FIT=1) one whole train step of `opt.inverse` at 8 spp as
 time, the device-busy time (the sum of kernel durations on the card), the
 idle share, the number of kernel launches, and the kernels with the most
 device time. With TRACE_DIR, it also writes Chrome traces there. `--fused`
-(or BENCH_FUSED=1) profiles the fused-cull searches (`ops.intersect.FUSED_CULL`).
+(or BENCH_FUSED=1) profiles the fused-cull searches (`ops.intersect.FUSED_CULL`),
+`--cull-kernel` (or BENCH_CULL_KERNEL=1) the list walks fed by the cull kernel
+(`ops.intersect.CULL_KERNEL`).
 """
 from __future__ import annotations
 
@@ -112,9 +114,10 @@ def main() -> int:
         print("profile_bench: no CUDA device", file=sys.stderr)
         return 1
     print(bench.device_info()["nvidia_smi"])
-    print(f"fused_cull={bench.fused_from_args(sys.argv[1:])}")
+    print(f"fused_cull={bench.fused_from_args(sys.argv[1:])} "
+          f"cull_kernel={bench.cull_kernel_from_args(sys.argv[1:])}")
     spec, _ = bench.spec_from_env(W, H)
-    args = [a for a in sys.argv[1:] if a not in ("--fit", "--fused")]
+    args = [a for a in sys.argv[1:] if a not in ("--fit", "--fused", "--cull-kernel")]
     fit = "--fit" in sys.argv[1:] or os.environ.get("BENCH_FIT") == "1"
     profile_scene(spec, args[0] if args else None, fit=fit)
     return 0

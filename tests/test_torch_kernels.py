@@ -12,7 +12,10 @@ to agree bit for bit), any-hit and the gather exactly, for the flat walks
 (A, B) and the two-level walks (D, E: small scenes with `SUPER_MIN_C`
 patched to 0, and a mesh of 20,000 triangles); the fused-cull searches (F, G,
 H, I) bit for bit against their plain versions and against A, B, D, E fed by
-the PyTorch cull on the same rays; the scatter-add (J) within
+the PyTorch cull on the same rays; the cull kernel (K) bit for bit against
+`cull_reference`, and the list walks fed by it against the same walks fed by
+the PyTorch cull; the counting walk and the walk without early exit bit for
+bit against A and against their step-by-step plain versions; the scatter-add (J) within
 1e-5 of the sum of |terms| of a float64 sum and bit-equal across launches;
 a gradient evaluation of `opt.inverse` bit-equal when repeated; and a small render
 through the kernels against the same render on the CPU (image rtol 1e-3 /
@@ -126,11 +129,18 @@ def test_wrappers_take_plain_versions_on_cpu():
         oi.occluded_soa(ts, o, d, T_MIN, t_max)
         oi.find_closest_soa(big, o, d, T_MIN, t_max)
         oi.occluded_soa(big, o, d, T_MIN, t_max)
+    with mock.patch.object(oi, "CULL_KERNEL", True):
+        oi.find_closest_soa(ts, o, d, T_MIN, t_max)
+        oi.occluded_soa(ts, o, d, T_MIN, t_max)
+    walk, *_ = oi._prep(ts, o, d, T_MIN, t_max, anyhit=False)
+    oi.closest_dbg_hit(*walk, T_MIN)
+    oi.closest_full_hit(*walk, T_MIN)
     assert cuda.LAUNCHES == {"closest": 0, "anyhit": 0, "unpack": 0,
                              "closest_super": 0, "anyhit_super": 0,
                              "scatter": 0, "fused_closest": 0,
                              "fused_anyhit": 0, "fused_closest_super": 0,
-                             "fused_anyhit_super": 0}
+                             "fused_anyhit_super": 0, "cull": 0,
+                             "closest_dbg": 0, "closest_full": 0}
 
 
 def test_kernel_entry_points_refuse_cpu_tensors():
@@ -163,6 +173,13 @@ def test_kernel_entry_points_refuse_cpu_tensors():
         oi.fused_closest_kernel(*walk, T_MIN)
     with pytest.raises(ValueError, match="CUDA"):
         oi.fused_anyhit_kernel(*walk, T_MIN)
+    with pytest.raises(ValueError, match="CUDA"):
+        oi.cull_kernel(walk[1], walk[2], ts.cluster_min.shape[0])
+    walk, *_ = oi._prep(ts, o, d, T_MIN, t_max, anyhit=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        oi.closest_dbg_kernel(*walk, T_MIN)
+    with pytest.raises(ValueError, match="CUDA"):
+        oi.closest_full_kernel(*walk, T_MIN)
 
 
 def test_too_many_clusters_raises():
@@ -187,8 +204,8 @@ def test_library_name_tracks_sources():
     assert name.startswith("libmfx_kernels_") and name.endswith(".so")
     assert cuda.library_path() == cuda.library_path()
     assert {p.name for p in cuda._sources()} == {
-        "intersect.cu", "intersect_fused.cu", "intersect_super.cu",
-        "scatter.cu", "unpack.cu"}
+        "cull.cu", "intersect.cu", "intersect_fused.cu", "intersect_stats.cu",
+        "intersect_super.cu", "scatter.cu", "unpack.cu"}
 
 
 # --- on the card -----------------------------------------------------------
@@ -332,6 +349,117 @@ def test_fused_queries_launch_kernels_and_match_list_path(card, monkeypatch):
         assert {k for k, v in cuda.LAUNCHES.items() if v} == set(names)
         assert torch.equal(got[0][0], want[0][0]) and torch.equal(got[0][1], want[0][1])
         assert torch.equal(got[1], want[1])
+
+
+def assert_cull_equal(got, want):
+    for g, w, what in zip(got, want, ("lists", "counts", "entries", "far")):
+        assert g.dtype == w.dtype and g.shape == w.shape, what
+        assert torch.equal(g, w), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_level,name", [
+    *[(lv, c) for lv in (False, True) for c in CASES], (True, "bumpy")])
+@pytest.mark.parametrize("n", [100, 1000])
+def test_cull_kernel_matches_plain_version(card, monkeypatch, name, two_level, n):
+    """K bit for bit against `cull_reference` (rows of n_box and of CP
+    columns), and A, B, D, E fed by K against the same walks fed by the
+    PyTorch cull; ~10% dead rays, non-aligned batches."""
+    if two_level:
+        monkeypatch.setattr(oi, "SUPER_MIN_C", 0)
+    spec, origin = BUMPY if name == "bumpy" else CASES[name]
+    ts = compile_scene(spec(), device=card).scene
+    o, d, t_max = rays(n, origin, seed=n, device=card, aimed=name == "bumpy")
+    for anyhit, t_far in ((False, t_max), (True, t_max * 0.4)):
+        lw, *_ = oi._prep(ts, o, d, T_MIN, t_far, anyhit=anyhit)
+        kw, *_ = oi._prep(ts, o, d, T_MIN, t_far, anyhit=anyhit, cull_kernel=True)
+        assert len(kw) == len(lw) and oi._is_super(kw) == two_level
+        for a, b in zip(kw, lw):
+            assert a.dtype == b.dtype and torch.equal(a.nan_to_num(), b.nan_to_num())
+        fw, *_ = oi._prep(ts, o, d, T_MIN, t_far, anyhit=anyhit, fused=True)
+        n_box = lw[-4].shape[1]
+        for width in (n_box, oi.CP):
+            got = oi.cull_kernel(fw[-2], fw[-1], width)
+            torch.cuda.synchronize()
+            assert_cull_equal(got, oi.cull_reference(fw[-2], fw[-1], width))
+        closest, anyh = oi._searches(lw)
+        fn = anyh if anyhit else closest
+        out_k, out_l = fn(*kw, T_MIN), fn(*lw, T_MIN)
+        for a, b in zip(out_k if not anyhit else (out_k,),
+                        out_l if not anyhit else (out_l,)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cull_kernel_dead_tile_nan_origin_nan_tmax(card):
+    """A tile of dead rays (far capped at tmax = 0), a NaN origin (passes no
+    box) and a NaN tmax (a NaN far): all as `_cull`."""
+    ts = scene_on("soup", card)
+    o, d, t_max = rays(512, CASES["soup"][1], seed=4, device=card, dead_frac=0.0)
+    t_max[128:256] = 0.0
+    o.x[300] = float("nan")
+    t_max[400] = float("nan")
+    d.y[401] = 0.0
+    fw, *_ = oi._prep(ts, o, d, T_MIN, t_max, anyhit=False, fused=True)
+    got = oi.cull_kernel(fw[-2], fw[-1], ts.cluster_min.shape[0])
+    want = oi.cull_reference(fw[-2], fw[-1], ts.cluster_min.shape[0])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[2])
+    assert torch.equal(got[3].nan_to_num(nan=-7.0), want[3].nan_to_num(nan=-7.0))
+    assert (got[3][128:256] <= 0).all() and got[1][0] > 0
+    assert got[3][400].isnan() and got[3][300] == -oi.BIG
+
+
+@pytest.mark.cuda
+def test_cull_kernel_route_launches_kernel_and_matches_list_path(card, monkeypatch):
+    """`CULL_KERNEL` sends the queries through K and the list walks, with the
+    default path's results; with `FUSED_CULL` too it raises."""
+    on = lambda v: v.map(lambda c: c.to(card))  # noqa: E731
+    for spec, origin, names in (
+            (CASES["soup"][0], CASES["soup"][1], ("cull", "closest", "anyhit")),
+            (bumpy_sphere, BUMPY[1], ("cull", "closest_super", "anyhit_super"))):
+        ts = compile_scene(spec(), device=card).scene
+        o, d, t_max = rays(777, origin, seed=5, device="cpu", aimed=spec is bumpy_sphere)
+        args = (ts, on(o), on(d), T_MIN, t_max.to(card))
+        want = oi.find_closest_soa(*args), oi.occluded_soa(*args[:4], args[4] * 0.4)
+        cuda.reset_launches()
+        monkeypatch.setattr(oi, "CULL_KERNEL", True)
+        got = oi.find_closest_soa(*args), oi.occluded_soa(*args[:4], args[4] * 0.4)
+        assert cuda.LAUNCHES["cull"] == 2
+        assert {k for k, v in cuda.LAUNCHES.items() if v} == set(names)
+        assert torch.equal(got[0][0], want[0][0]) and torch.equal(got[0][1], want[0][1])
+        assert torch.equal(got[1], want[1])
+        monkeypatch.setattr(oi, "FUSED_CULL", True)
+        with pytest.raises(ValueError, match="at most one"):
+            oi.find_closest_soa(*args)
+        monkeypatch.setattr(oi, "FUSED_CULL", False)
+        monkeypatch.setattr(oi, "CULL_KERNEL", False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("n", [100, 1000, 4096])
+def test_walk_stats_kernels_match_kernel_a_and_plain_versions(card, name, n):
+    """The counting walk and the walk without early exit return kernel A's
+    (t, idx) bit for bit; `walked` equals the step-by-step model's and never
+    exceeds the count."""
+    ts = scene_on(name, card)
+    o, d, t_max = rays(n, CASES[name][1], seed=n, device=card)
+    walk, *_ = oi._prep(ts, o, d, T_MIN, t_max, anyhit=False)
+    ta, ia = oi.closest_kernel(*walk, T_MIN)
+    td, id_, walked = oi.closest_dbg_kernel(*walk, T_MIN)
+    tf, if_ = oi.closest_full_kernel(*walk, T_MIN)
+    torch.cuda.synchronize()
+    assert torch.equal(td, ta) and torch.equal(id_, ia)
+    assert torch.equal(tf, ta) and torch.equal(if_, ia)
+    tp, ip, wp = oi.closest_dbg_reference(*walk, T_MIN)
+    assert torch.equal(tp, ta) and torch.equal(ip, ia)
+    assert walked.dtype == torch.int32 and torch.equal(walked, wp)
+    assert (walked <= walk[2]).all()
+    tq, iq = oi.closest_full_reference(*walk, T_MIN)
+    assert torch.equal(tq, ta) and torch.equal(iq, ia)
+    if name == "soup":      # unrelated rays: nearly every listed cluster is walked
+        assert (walked > 0).any()
 
 
 @pytest.mark.cuda
