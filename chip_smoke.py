@@ -19,10 +19,17 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    two-level walks (closest_super, anyhit_super) and the gather at P =
    65,544 on a seeded mesh of 36,996 faces (512 clusters, 32 superclusters)
    that is written as an OBJ file to the temp directory and loaded through
-   `scene.assets.mesh_scene`: primary and shadow rays at B = 524,288 and a
-   non-aligned batch with ~10% dead rays. The gather also as a pure unpack
+   `scene.assets.mesh_scene`: primary and shadow rays at B = 524,288, the
+   shadow rays less their last 287 (a batch that is not a multiple of the
+   tile), and a non-aligned batch of unrelated rays (incoherent tiles) with
+   ~10% dead rays. For the any-hit walk on the three shadow-like inputs, its
+   fan-out counted in PyTorch: the children a tile's rays ask for in all
+   (what a walk that stages every asked-for child for the whole tile stages:
+   an upper bound) against the (ray, child) pairs they ask for and the pairs
+   the answer needs. The gather also as a pure unpack
    (idx = arange(B) over a (B, 36) table, B a multiple of 1024: the contract
-   of the Pallas unpack kernels), bit-equal to the transpose. The scatter-add
+   of the Pallas unpack kernels), bit-equal to the transpose, and at a
+   batch that is not a multiple of 4. The scatter-add
    (the backward of the gathers) against a float64 sum on the card, within
    1e-5 * sum |terms| + 1e-6 per entry (float32 sums in another order), and
    against its plain version, on the primary-hit rows of the mesh (P =
@@ -109,6 +116,14 @@ Then, on lines of their own: the kernels' JSON record, the nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA
 device. Imports no JAX.
 
+    python3 chip_smoke.py --walks LABEL OUT_DIR
+
+times only the gather and the two-level walks on the mesh's queries of phase
+2 (`time_walks`), one JSON line tagged LABEL, and saves E's outputs in
+OUT_DIR or compares them with a run's saved there. To compare two checkouts
+on one card, copy this script into the other one's root and run the two in
+turns (parent, change, change, parent) with the same OUT_DIR.
+
 A kernel's bound is the larger of two times: the bytes of its inputs and
 outputs over the card's memory rate (3.35 TB/s), and the fp32 operations of
 the ray-triangle tests that these inputs need over the card's fp32 rate
@@ -159,6 +174,7 @@ FIT_SCALE = 8.0             # Adam moves every coordinate by about lr a step,
                             # faster than the albedo fit gains.
 SMALL = 64                  # side of the kernels-vs-plain comparison renders
 MESH_FACES = 36996          # the face count of the reference's largest model
+INCOHERENT = 65536 - 37     # rays of the batch of unrelated rays around the mesh
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS = 67e12          # fp32 outside the tensor cores, same sheet
@@ -314,6 +330,48 @@ def walk_bound(scene, walk, t_min, t_final=None, occ=None, fused_walk=None):
     return dict(bound_ms=1e3 * max(t_bytes, t_flops),
                 bound_by="operations" if t_flops >= t_bytes else "bytes",
                 ray_cluster_pairs=pairs, **extra)
+
+
+def anyhit_fanout(walk, t_min, needed_pairs):
+    """The fan-out of a two-level any-hit input, counted in PyTorch: per tile,
+    the children that a walk staging every child any ray of the tile asks for
+    would stage (the union over the tile's live rays of `refine_children` at
+    limit tmax over the listed superclusters: an upper bound, since a blocked
+    ray stops asking and the walk stops at its exit), and the (ray, child)
+    pairs those rays ask for. pairs / (128 x staged) is the share of a 128-lane
+    block that such a walk keeps busy; `needed_pairs` (`walk_bound`'s count)
+    is what the answer needs."""
+    import torch
+
+    from mafrixraytracing_torch.ops import intersect as oi
+
+    bounds, lists, counts, rays = walk[1], walk[2], walk[3], walk[5]
+    tiles, S = lists.shape
+    slot = torch.arange(S, device=rays.device)[None, :] < counts[:, None]
+    member = torch.zeros((tiles, S + 1), dtype=torch.bool, device=rays.device)
+    member.scatter_(1, torch.where(slot, lists.long(), S), True)
+    member = member[:, :S, None]
+    limit = torch.where(rays[6] > t_min, rays[6], -oi.BIG)
+    staged = asked = 0
+    step = 1 << 16
+    for s in range(0, rays.shape[1], step):
+        e = min(rays.shape[1], s + step)
+        keep = oi.refine_children(bounds, rays[:, s:e], limit[s:e])
+        keep = keep.reshape(-1, oi.TILE, S, oi.SUPER) & member[s // oi.TILE:e // oi.TILE, None]
+        asked += int(keep.sum())
+        staged += int(keep.any(dim=1).sum())
+    return dict(tiles=tiles, children_staged=staged, pairs_asked=asked,
+                pairs_needed=needed_pairs,
+                lane_use=asked / max(1, oi.TILE * staged),
+                needed_share=needed_pairs / max(1, oi.TILE * staged))
+
+
+def print_fanout(f, label):
+    print(f"  anyhit_super fan-out {label}: {f['tiles']} tiles, children staged a tile "
+          f"{f['children_staged'] / f['tiles']:.2f} (upper bound), (ray, child) pairs "
+          f"asked {f['pairs_asked']} ({f['pairs_asked'] / f['tiles']:.1f} a tile), "
+          f"needed {f['pairs_needed']}; lanes busy a staged child "
+          f"{f['lane_use']:.4f} (asked), {f['needed_share']:.4f} (needed)")
 
 
 def compare_closest(walk, t_min, label, same_as=None):
@@ -707,13 +765,16 @@ def compare_pure_unpack(torch, dev):
     out = ou.unpack_kernel(rows, idx)
     torch.cuda.synchronize()
     same = torch.equal(out, rows.t())
+    n = B - 3      # column segments that start off a 16-byte boundary
+    same_n = torch.equal(ou.unpack_kernel(rows[:n], idx[:n]), rows[:n].t())
     ms = time_ms(lambda: ou.unpack_kernel(rows, idx))
     ms_l = time_ms(lambda: rows.t().contiguous())
     bound = 1e3 * (2 * rows.numel() * 4 + 8 * B) / HBM_BYTES_PER_S
     print(f"  unpack as a pure (B, 36) -> (36, B) unpack, B = {B:,}: bit-equal to "
-          f"the transpose={same}, kernel {ms:.4f} ms, library (rows.t().contiguous()) "
-          f"{ms_l:.4f} ms, bound {bound:.5f} ms by bytes")
-    check(same, "unpack kernel is not bit-equal to the transpose")
+          f"the transpose={same} (at B = {n:,}: {same_n}), kernel {ms:.4f} ms, library "
+          f"(rows.t().contiguous()) {ms_l:.4f} ms, bound {bound:.5f} ms by bytes "
+          f"({bound / ms:.3f} of it)")
+    check(same and same_n, "unpack kernel is not bit-equal to the transpose")
 
 
 def wavefront_uv(torch, dev, gen):
@@ -732,11 +793,59 @@ def wavefront_uv(torch, dev, gen):
             (py + torch.rand(n, generator=gen, device=dev)) / HEIGHT)
 
 
-def phase_kernels_mesh(torch, dev, records, cornell_idx, cornell_P):
-    """Kernels D and E (and the gather at a real table size) on the mesh."""
+def mesh_rays(torch, dev, cs, t_min):
+    """The mesh's queries of phase 2, made from seeds -> {name: (o, d, t_max)}:
+    "primary", one wavefront in the main path's size and order; "shadow",
+    NEE-like shadow rays from the primary hits toward points on the light;
+    "shadow_cut", the same less the last 287 (a batch that is not a multiple
+    of the tile, whose last tile is padded with dead rays); "incoherent" and
+    "incoherent_shadow", a non-aligned batch of unrelated rays around the mesh
+    with ~10% dead, the second with shorter t_max; and "primary_hits", the
+    primary rays' triangle indices."""
     import numpy as np
 
     from mafrixraytracing_torch.core.v3 import V3
+    from mafrixraytracing_torch.ops import intersect as oi
+
+    scene = cs.scene
+    gen = torch.Generator(device=dev).manual_seed(11)
+    u, v = wavefront_uv(torch, dev, gen)
+    B = u.shape[0]
+    o, d = cs.camera.get_rays(u, v)
+    t_hit, i_hit = oi.find_closest_soa(scene, o, d, t_min, 1e8)
+    hit = i_hit >= 0
+    p = o + d * torch.where(hit, t_hit, 0.0)
+    lv0, le1, le2 = scene.light_v0[0], scene.light_e1[0], scene.light_e2[0]
+    a1 = torch.rand(B, generator=gen, device=dev)
+    a2 = torch.rand(B, generator=gen, device=dev)   # the light quad's parallelogram
+    lp = V3(*(lv0[k] + a1 * le1[k] + a2 * le2[k] for k in range(3)))
+    to_l = lp - p
+    dist = torch.sqrt(to_l.x**2 + to_l.y**2 + to_l.z**2)
+    sd = V3(to_l.x / dist, to_l.y / dist, to_l.z / dist)
+    so = p + sd * 1e-3
+    s_tmax = torch.where(hit, dist - 2e-3, 0.0)
+    n_cut = B - 287
+    cut = lambda v: v.map(lambda c: c[:n_cut])  # noqa: E731
+
+    rs = np.random.default_rng(77)
+    Bs = INCOHERENT
+    o_np = rs.normal(0.0, 1.0, (Bs, 3))
+    o_np = (2.5 * o_np / np.linalg.norm(o_np, axis=1, keepdims=True)).astype(np.float32)
+    d_np = (rs.uniform(-0.9, 0.9, (Bs, 3)) - o_np).astype(np.float32)
+    d_np /= np.linalg.norm(d_np, axis=1, keepdims=True)
+    dead = rs.random(Bs) < 0.1
+    tmax_c = np.where(dead, 0.0, 1e8).astype(np.float32)
+    tmax_a = np.where(dead, 0.0, rs.uniform(0.5, 4.0, Bs)).astype(np.float32)
+    to = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    qo, qd = V3.of(to(o_np)), V3.of(to(d_np))
+    return dict(primary=(o, d, 1e8), shadow=(so, sd, s_tmax),
+                shadow_cut=(cut(so), cut(sd), s_tmax[:n_cut]),
+                incoherent=(qo, qd, to(tmax_c)), incoherent_shadow=(qo, qd, to(tmax_a)),
+                primary_hits=i_hit)
+
+
+def phase_kernels_mesh(torch, dev, records, cornell_idx, cornell_P):
+    """Kernels D and E (and the gather at a real table size) on the mesh."""
     from mafrixraytracing_torch.geometry.intersect import packed_attr_table
     from mafrixraytracing_torch.ops import intersect as oi
     from mafrixraytracing_torch.ops import unpack as ou
@@ -755,12 +864,11 @@ def phase_kernels_mesh(torch, dev, records, cornell_idx, cornell_P):
     check(scene.tri_v0.is_cuda, "compile_scene did not default to the card")
     check(int(scene.tri_mask.sum()) == MESH_FACES + 2, "mesh triangle count")
     check((C, S) == (512, 32), "mesh must have 512 clusters, 32 superclusters")
+    rays = mesh_rays(torch, dev, cs, t_min)
 
     # --- primary rays: one wavefront in the main path's size and order ---
-    gen = torch.Generator(device=dev).manual_seed(11)
-    u, v = wavefront_uv(torch, dev, gen)
-    B = u.shape[0]
-    o, d = cs.camera.get_rays(u, v)
+    o, d, _ = rays["primary"]
+    B = o.x.shape[0]
     walk, *_ = oi._prep(scene, o, d, t_min, 1e8, anyhit=False)
     check(oi._is_super(walk), "the mesh must take the two-level path")
     err_c, t_k, i_k, ms_cp = compare_closest(walk, t_min, "mesh primary")
@@ -770,24 +878,31 @@ def phase_kernels_mesh(torch, dev, records, cornell_idx, cornell_P):
                             "mesh primary")
 
     # NEE-like shadow rays: from the primary hits toward points on the light
-    t_hit, i_hit = oi.find_closest_soa(scene, o, d, t_min, 1e8)
-    hit = i_hit >= 0
-    p = o + d * torch.where(hit, t_hit, 0.0)
-    lv0, le1, le2 = scene.light_v0[0], scene.light_e1[0], scene.light_e2[0]
-    a1 = torch.rand(B, generator=gen, device=dev)
-    a2 = torch.rand(B, generator=gen, device=dev)   # the light quad's parallelogram
-    lp = V3(*(lv0[k] + a1 * le1[k] + a2 * le2[k] for k in range(3)))
-    to_l = lp - p
-    dist = torch.sqrt(to_l.x**2 + to_l.y**2 + to_l.z**2)
-    sd = V3(to_l.x / dist, to_l.y / dist, to_l.z / dist)
-    so = p + sd * 1e-3
-    s_tmax = torch.where(hit, dist - 2e-3, 0.0)
+    i_hit = rays["primary_hits"]
+    so, sd, s_tmax = rays["shadow"]
     swalk, *_ = oi._prep(scene, so, sd, t_min, s_tmax, anyhit=True)
     err_a, occ_k, ms_ap = compare_anyhit(swalk, t_min, "mesh shadow")
     ms_a = time_ms(lambda: oi.anyhit_super_kernel(*swalk, t_min))
     bound_a = walk_bound(scene, swalk, t_min, occ=occ_k)
+    print_fanout(anyhit_fanout(swalk, t_min, bound_a["ray_cluster_pairs"]),
+                 f"mesh shadow, B = {B:,}")
     fused_a = fused_vs_list(scene, so, sd, s_tmax, True, swalk, occ_k, t_min,
                             "mesh shadow")
+    so_c, sd_c, s_tmax_c = rays["shadow_cut"]
+    n_cut = s_tmax_c.shape[0]
+    swalk_c, *_ = oi._prep(scene, so_c, sd_c, t_min, s_tmax_c, anyhit=True)
+    err_ac, occ_c, _ = compare_anyhit(swalk_c, t_min, "mesh shadow, non-aligned")
+    ms_ac = time_ms(lambda: oi.anyhit_super_kernel(*swalk_c, t_min))
+    bound_ac = walk_bound(scene, swalk_c, t_min, occ=occ_c)
+    print_fanout(anyhit_fanout(swalk_c, t_min, bound_ac["ray_cluster_pairs"]),
+                 f"mesh shadow, non-aligned B = {n_cut:,}")
+    fused_ac = fused_vs_list(scene, so_c, sd_c, s_tmax_c, True, swalk_c, occ_c, t_min,
+                             "mesh shadow, non-aligned")
+    print(f"  anyhit_super on the non-aligned shadow rays (B = {n_cut:,}): kernel "
+          f"{ms_ac:.4f} ms, bound {bound_ac['bound_ms']:.5f} ms by "
+          f"{bound_ac['bound_by']}, {bound_ac['ray_cluster_pairs']} ray-cluster pairs needed")
+    print_fused("fused_anyhit_super on the non-aligned shadow rays", fused_ac,
+                f"B = {n_cut:,}")
 
     # the gather at the mesh's table size
     table = packed_attr_table(scene).contiguous()
@@ -802,27 +917,19 @@ def phase_kernels_mesh(torch, dev, records, cornell_idx, cornell_P):
     ms_g = time_ms(lambda: ou.unpack_kernel(table, gidx))
     ms_gp = time_ms(lambda: ou.fetch_cols_reference(table, gidx))
 
-    # --- non-aligned batch around the mesh, ~10% dead rays ---
-    rs = np.random.default_rng(77)
-    Bs = 65536 - 37
-    o_np = rs.normal(0.0, 1.0, (Bs, 3))
-    o_np = (2.5 * o_np / np.linalg.norm(o_np, axis=1, keepdims=True)).astype(np.float32)
-    d_np = (rs.uniform(-0.9, 0.9, (Bs, 3)) - o_np).astype(np.float32)
-    d_np /= np.linalg.norm(d_np, axis=1, keepdims=True)
-    dead = rs.random(Bs) < 0.1
-    tmax_c = np.where(dead, 0.0, 1e8).astype(np.float32)
-    tmax_a = np.where(dead, 0.0, rs.uniform(0.5, 4.0, Bs)).astype(np.float32)
-    to = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-    qo, qd = V3.of(to(o_np)), V3.of(to(d_np))
-    walk_n, *_ = oi._prep(scene, qo, qd, t_min, to(tmax_c), anyhit=False)
+    # --- non-aligned batch of unrelated rays around the mesh (incoherent
+    # tiles), ~10% dead rays ---
+    qo, qd, tmax_c = rays["incoherent"]
+    tmax_a = rays["incoherent_shadow"][2]
+    walk_n, *_ = oi._prep(scene, qo, qd, t_min, tmax_c, anyhit=False)
     err_cn, t_n, i_n, _ = compare_closest(walk_n, t_min, "mesh non-aligned")
-    walk_na, *_ = oi._prep(scene, qo, qd, t_min, to(tmax_a), anyhit=True)
+    walk_na, *_ = oi._prep(scene, qo, qd, t_min, tmax_a, anyhit=True)
     err_an, occ_n, _ = compare_anyhit(walk_na, t_min, "mesh non-aligned")
-    fused_cn = fused_vs_list(scene, qo, qd, to(tmax_c), False, walk_n, (t_n, i_n),
+    fused_cn = fused_vs_list(scene, qo, qd, tmax_c, False, walk_n, (t_n, i_n),
                              t_min, "mesh non-aligned")
-    fused_an = fused_vs_list(scene, qo, qd, to(tmax_a), True, walk_na, occ_n,
+    fused_an = fused_vs_list(scene, qo, qd, tmax_a, True, walk_na, occ_n,
                              t_min, "mesh non-aligned")
-    culls = [f.pop("cull") for f in (fused_c, fused_a, fused_cn, fused_an)]
+    culls = [f.pop("cull") for f in (fused_c, fused_a, fused_cn, fused_an, fused_ac)]
     culls[0]["max_abs_err"] = max([c["max_abs_err"] for c in culls]
                                   + [records["cull"]["max_abs_err"]])
     records["cull"] = culls[0]     # the mesh's 32 supercluster boxes, B = 524,288
@@ -843,14 +950,18 @@ def phase_kernels_mesh(torch, dev, records, cornell_idx, cornell_P):
         print(f"  {name} on incoherent tiles (B = {w[-1].shape[1]:,}): kernel "
               f"{ms:.4f} ms, bound {b['bound_ms']:.5f} ms by {b['bound_by']}, "
               f"{b['ray_cluster_pairs']} ray-cluster pairs needed")
+        if name == "anyhit_super":
+            print_fanout(anyhit_fanout(w, t_min, b["ray_cluster_pairs"]),
+                         f"incoherent tiles, B = {w[-1].shape[1]:,}")
 
     compare_pure_unpack(torch, dev)
     phase_scatter(torch, dev, records, gidx, table.shape[0], cornell_idx, cornell_P)
 
     records["closest_super"] = dict(max_abs_err=max(err_c, err_cn), ms=ms_c,
                                     plain_ms=ms_cp, library_ms=None, **bound_c)
-    records["anyhit_super"] = dict(max_abs_err=max(err_a, err_an), ms=ms_a,
+    records["anyhit_super"] = dict(max_abs_err=max(err_a, err_an, err_ac), ms=ms_a,
                                    plain_ms=ms_ap, library_ms=None, **bound_a)
+    fused_an["max_abs_err"] = max(fused_an["max_abs_err"], fused_ac["max_abs_err"])
     for name, r, rn in (("fused_closest_super", fused_c, fused_cn),
                         ("fused_anyhit_super", fused_a, fused_an)):
         r["max_abs_err"] = max(r["max_abs_err"], rn["max_abs_err"])
@@ -863,11 +974,65 @@ def phase_kernels_mesh(torch, dev, records, cornell_idx, cornell_P):
     for k in ("closest_super", "anyhit_super", "unpack"):
         r = records[k]
         print(f"  {k}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}"
+              + ("" if r["library_ms"] is None else f"library {r['library_ms']:.4f} ms, ")
+              + f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
+              f"({r['bound_ms'] / r['ms']:.3f} of it)"
               + (f", {r['ray_cluster_pairs']} ray-cluster pairs needed"
                  if "ray_cluster_pairs" in r else "")
               + f" (mesh, B = {B:,})")
     return records
+
+
+def time_walks(torch, dev, label, out_dir):
+    """`--walks`: the gather (C) and the two-level walks (D, E, and I with its
+    cull) timed on the mesh's queries of phase 2, one JSON line. E's
+    outputs and a hash of the gather's are saved in `out_dir`, or, when a
+    run of another checkout saved them there, compared with those: two
+    checkouts timed in turns on one card must agree bit for bit."""
+    import hashlib
+
+    from mafrixraytracing_torch.geometry.intersect import packed_attr_table
+    from mafrixraytracing_torch.ops import intersect as oi
+    from mafrixraytracing_torch.ops import unpack as ou
+    from mafrixraytracing_torch.scene.compiler import compile_scene
+
+    t_min = 1e-3
+    cs = compile_scene(mesh_spec(WIDTH, HEIGHT), device=dev)
+    rays = mesh_rays(torch, dev, cs, t_min)
+    rec, outputs = {}, {}
+    for name in ("shadow", "shadow_cut", "incoherent_shadow"):
+        lw, *_ = oi._prep(cs.scene, *rays[name][:2], t_min, rays[name][2], anyhit=True)
+        fw, *_ = oi._prep(cs.scene, *rays[name][:2], t_min, rays[name][2], anyhit=True,
+                          fused=True)
+        occ = oi.anyhit_super_kernel(*lw, t_min)
+        outputs[name] = occ.cpu()
+        rec[f"I equals E, {name}"] = torch.equal(oi.fused_anyhit_super_kernel(*fw, t_min), occ)
+        rec[f"E {name}"] = time_ms(lambda: oi.anyhit_super_kernel(*lw, t_min))  # noqa: B023
+        rec[f"I {name}"] = time_ms(lambda: oi.fused_anyhit_super_kernel(*fw, t_min))  # noqa: B023
+    for name in ("primary", "incoherent"):
+        lw, *_ = oi._prep(cs.scene, *rays[name][:2], t_min, rays[name][2], anyhit=False)
+        rec[f"D {name}"] = time_ms(lambda: oi.closest_super_kernel(*lw, t_min))  # noqa: B023
+    table = packed_attr_table(cs.scene).contiguous()
+    gidx = rays["primary_hits"].clamp(0, table.shape[0] - 1)
+    gk = ou.unpack_kernel(table, gidx)
+    outputs["gather_sha256"] = hashlib.sha256(gk.cpu().numpy().tobytes()).hexdigest()
+    rec["C gather"] = time_ms(lambda: ou.unpack_kernel(table, gidx))
+    rec["C gather, library"] = time_library_gather(table, gidx)
+    rows = torch.randn((512 * 1024, 36), generator=torch.Generator(device=dev).manual_seed(5),
+                       device=dev)
+    idx = torch.arange(rows.shape[0], device=dev)
+    rec["C pure unpack"] = time_ms(lambda: ou.unpack_kernel(rows, idx))
+    rec["C pure unpack, library"] = time_ms(lambda: rows.t().contiguous())
+    path = os.path.join(out_dir, "walks_outputs.pt")
+    if os.path.exists(path):
+        saved = torch.load(path)
+        rec["outputs equal to the saved run's"] = all(
+            saved[k] == v if isinstance(v, str) else torch.equal(saved[k], v)
+            for k, v in outputs.items())
+    else:
+        os.makedirs(out_dir, exist_ok=True)
+        torch.save(outputs, path)
+    print(f"[{label}] " + json.dumps(rec))
 
 
 def phase_kernels(torch, dev):
@@ -1607,6 +1772,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--walks"]:
+        cuda.lib()
+        time_walks(torch, dev, *sys.argv[2:4])
+        return 0
 
     print("[1] device and build")
     info = bench.device_info()

@@ -1,9 +1,13 @@
 // Shared pieces of the cluster walks (intersect.cu, intersect_super.cu,
 // intersect_fused.cu): the ray record, the staging of one packed cluster into
-// shared memory, the plane + barycentric ray-triangle test, the block-wide
-// reductions, and the four walks themselves as __device__ functions.
-// intersect_stats.cu instantiates the closest-hit walk with a counter and
-// without its early exit.
+// shared memory, the plane + barycentric ray-triangle test (one body for a
+// triangle in shared memory or in registers), the block-wide reductions, and
+// the four walks themselves as __device__ functions. intersect_stats.cu
+// instantiates the closest-hit walk with a counter and without its early
+// exit. The two-level any-hit walk (kernels E and I) is pair-parallel: a
+// thread holds a triangle and tests it against the rays that ask for its
+// cluster, where the other walks hold a ray and test it against a staged
+// cluster.
 //
 // A walk takes its tile's list, entries and count by pointer and value, so
 // the list may live in global memory (the cull ran in PyTorch: kernels A, B,
@@ -55,23 +59,36 @@ __device__ __forceinline__ void stage_cluster(float* s_tri, const float* __restr
   for (int j = threadIdx.x; j < COMP * CLUSTER / 4; j += TILE) dst[j] = src[j];
 }
 
-// The plane + barycentric test of one ray against triangle j of the staged
-// cluster, in the operation order of ops/intersect.py::_plane_terms.
-// Returns true with t set when the ray meets the triangle's interior.
-__device__ __forceinline__ bool tri_test(const float* s, int j, const Ray& q, float& t) {
-  const float nx = s[0 * CLUSTER + j], ny = s[1 * CLUSTER + j], nz = s[2 * CLUSTER + j];
-  const float dp = s[3 * CLUSTER + j];
+// Triangle j of a cluster staged in shared memory, as its 12 components.
+struct StagedTri {
+  const float* s;
+  int j;
+  __device__ __forceinline__ float operator[](int k) const { return s[k * CLUSTER + j]; }
+};
+
+// The plane + barycentric test of one ray against one triangle, in the
+// operation order of ops/intersect.py::_plane_terms. `c[k]` is the
+// triangle's component k: a StagedTri, or a float[12] held in registers (the
+// pair walk of walk_anyhit_super). Returns true with t set when the ray meets
+// the triangle's interior.
+template <class Tri>
+__device__ __forceinline__ bool tri_test(const Tri& c, const Ray& q, float& t) {
+  const float nx = c[0], ny = c[1], nz = c[2];
+  const float dp = c[3];
   const float det = q.dx * nx + q.dy * ny + q.dz * nz;
   if (!(fabsf(det) > DET_EPS)) return false;
   t = (dp - (q.ox * nx + q.oy * ny + q.oz * nz)) / det;
   const float px = q.ox + t * q.dx;
   const float py = q.oy + t * q.dy;
   const float pz = q.oz + t * q.dz;
-  const float u = s[4 * CLUSTER + j] * px + s[5 * CLUSTER + j] * py + s[6 * CLUSTER + j] * pz
-                  - s[7 * CLUSTER + j];
-  const float v = s[8 * CLUSTER + j] * px + s[9 * CLUSTER + j] * py + s[10 * CLUSTER + j] * pz
-                  - s[11 * CLUSTER + j];
+  const float u = c[4] * px + c[5] * py + c[6] * pz - c[7];
+  const float v = c[8] * px + c[9] * py + c[10] * pz - c[11];
   return (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f);
+}
+
+// The test against triangle j of the staged cluster.
+__device__ __forceinline__ bool tri_test(const float* s, int j, const Ray& q, float& t) {
+  return tri_test(StagedTri{s, j}, q, t);
 }
 
 // Max over the block's 128 threads; ends with every thread holding it. The
@@ -238,45 +255,133 @@ __device__ __forceinline__ void walk_closest_super(
   }
 }
 
+// Shared memory of the two-level any-hit walk (kernels E and I).
+struct AnyhitSuperSmem {
+  float ray[7][TILE];                 // the tile's rays: ox oy oz dx dy dz tmax
+  float b[BOUNDS_ROWS * SUPER];       // the staged child boxes
+  int warp_count[SUPER][TILE / 32];   // per child, the rays each warp lists
+  uint8_t list[SUPER][TILE];          // per child, the rays that ask for it
+  uint8_t blocked[TILE];              // 1 once the ray is occluded
+};
+
+// Triangle `lane` of cluster c into registers: one coalesced 6 KB read of the
+// block (the packed (12, 128) layout), straight from the L2-resident table.
+__device__ __forceinline__ void load_tri(float (&c)[COMP], const float* __restrict__ tri,
+                                         int cl) {
+  const float* src = tri + (size_t)cl * COMP * CLUSTER + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < COMP; ++k) c[k] = __ldg(src + k * CLUSTER);
+}
+
+// Thread i's triangle (`c`, triangle i of child j) against the m rays that
+// ask for child j. A ray already blocked is skipped; a hit in (t_min, tmax)
+// blocks it. Every writer stores 1, so the bytes need no atomics and the
+// result does not depend on the order of the tests.
+__device__ __forceinline__ void test_listed(const float (&c)[COMP], AnyhitSuperSmem& sm, int j,
+                                            int m, float t_min) {
+  volatile uint8_t* blocked = sm.blocked;
+  for (int p = 0; p < m; ++p) {
+    const int r = sm.list[j][p];
+    if (blocked[r]) continue;
+    Ray y;
+    y.ox = sm.ray[0][r];
+    y.oy = sm.ray[1][r];
+    y.oz = sm.ray[2][r];
+    y.dx = sm.ray[3][r];
+    y.dy = sm.ray[4][r];
+    y.dz = sm.ray[5][r];
+    y.tmax = sm.ray[6][r];
+    float t;
+    if (tri_test(c, y, t) && t > t_min && t < y.tmax) blocked[r] = 1;
+  }
+}
+
 // The any-hit walk over a tile's n listed superclusters (kernels E and I).
+//
+// The work of a visit scales with the (ray, child) pairs the rays ask for,
+// not with the children times 128 serial tests. Per supercluster every
+// unresolved live ray refines its 16-bit mask of children as before; the
+// block lists, for each child, the rays that ask for it (a ballot a warp,
+// offsets by popc). Then for each child that some ray asks for, thread i
+// holds triangle i of the child in registers and tests it against the
+// child's listed rays, whose records sit in shared memory; the next child's
+// triangles are loaded before the current one's tests, so the L2 latency
+// hides behind them. A child one ray asks for costs a test a thread, not 128
+// tests on one thread while 127 wait; a child all 128 rays ask for costs what
+// a staged child cost. The result is the OR over the same tests with the
+// same arithmetic, and the rays ask for the same children (the refinement,
+// the list order and the exit between superclusters are unchanged), so it
+// equals the reference on every input whatever the order of the tests.
 __device__ __forceinline__ bool walk_anyhit_super(
     const float* __restrict__ tri, const float* __restrict__ bounds, const int* list,
     const float* entry, int n, const Ray& q, float t_min, float refine_rel, float refine_abs,
-    WalkSmem& sm, SuperSmem& ss) {
+    AnyhitSuperSmem& sm) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;   // the lanes before this one
   const float ix = safe_inverse(q.dx), iy = safe_inverse(q.dy), iz = safe_inverse(q.dz);
   const bool dead = q.tmax <= t_min;
-  bool blocked = false;
+  sm.ray[0][tid] = q.ox;
+  sm.ray[1][tid] = q.oy;
+  sm.ray[2][tid] = q.oz;
+  sm.ray[3][tid] = q.dx;
+  sm.ray[4][tid] = q.dy;
+  sm.ray[5][tid] = q.dz;
+  sm.ray[6][tid] = q.tmax;
+  sm.blocked[tid] = 0;
   for (int k = 0; k < n; ++k) {
-    // resolved as in the flat any-hit walk; the vote's barrier fences ss.b,
-    // ss.orr and sm.tri from the last iteration
+    // the last supercluster's tests are done: the blocked bytes are final,
+    // the boxes, counts and lists free
+    __syncthreads();
+    const bool blocked = sm.blocked[tid] != 0;
+    // resolved as in the flat any-hit walk
     const bool resolved = blocked || dead || (q.far < entry[k]);
     if (__syncthreads_and(resolved)) break;
     const int s = list[k];
-    stage_bounds(ss.b, bounds, s);
+    stage_bounds(sm.b, bounds, s);
     __syncthreads();
     // blocked and dead rays ask for no child at all
     const unsigned mine =
-        (blocked || dead) ? 0u : refine(ss.b, q, ix, iy, iz, q.tmax, refine_rel, refine_abs);
-    unsigned todo = block_or(mine, ss.orr);
-    while (todo) {
-      const int j = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const int c = s * SUPER + j;
-      __syncthreads();  // the last child's tests are done with sm.tri
-      stage_cluster(sm.tri, tri, c);
-      __syncthreads();
-      if (!blocked && ((mine >> j) & 1u)) {
-        for (int i = 0; i < CLUSTER; ++i) {
-          float t;
-          if (tri_test(sm.tri, i, q, t) && t > t_min && t < q.tmax) {
-            blocked = true;
-            break;
-          }
-        }
+        (blocked || dead) ? 0u : refine(sm.b, q, ix, iy, iz, q.tmax, refine_rel, refine_abs);
+    unsigned ballot[SUPER];
+#pragma unroll
+    for (int j = 0; j < SUPER; ++j) {
+      ballot[j] = __ballot_sync(0xffffffffu, (mine >> j) & 1u);
+      if (lane == 0) sm.warp_count[j][warp] = __popc(ballot[j]);
+    }
+    __syncthreads();
+    unsigned todo = 0;
+#pragma unroll
+    for (int j = 0; j < SUPER; ++j) {
+      const int* wc = sm.warp_count[j];
+      if (wc[0] + wc[1] + wc[2] + wc[3] > 0) todo |= 1u << j;
+      if ((mine >> j) & 1u) {
+        int at = __popc(ballot[j] & below);
+        for (int w = 0; w < warp; ++w) at += wc[w];
+        sm.list[j][at] = (uint8_t)tid;
       }
     }
+    __syncthreads();
+    if (!todo) continue;
+    float cur[COMP], next[COMP];
+    int j = __ffs(todo) - 1;
+    todo &= todo - 1;
+    load_tri(cur, tri, s * SUPER + j);
+    for (;;) {
+      const int jn = todo ? __ffs(todo) - 1 : -1;
+      if (jn >= 0) {
+        todo &= todo - 1;
+        load_tri(next, tri, s * SUPER + jn);
+      }
+      const int* wc = sm.warp_count[j];
+      test_listed(cur, sm, j, wc[0] + wc[1] + wc[2] + wc[3], t_min);
+      if (jn < 0) break;
+#pragma unroll
+      for (int c = 0; c < COMP; ++c) cur[c] = next[c];
+      j = jn;
+    }
   }
-  return blocked;
+  __syncthreads();
+  return sm.blocked[tid] != 0;
 }
 
 }  // namespace

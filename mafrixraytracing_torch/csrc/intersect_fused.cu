@@ -44,9 +44,11 @@
 //
 // What bounds it on the H100. Operations, as the list walks: the slab tests
 // add 128 rays x n boxes x ~27 fp32 operations a tile, about the cost of one
-// cluster visit (128 x 128 tests of ~30) at n = 128. Bytes: a tile reads its
-// rays (3.5 KB), the box table (L2-resident) and 6 KB per visited cluster,
-// and writes 8 or 1 bytes a ray. 11.7 KB of static shared memory at most.
+// cluster visit (128 x 128 tests of ~30) at n = 128 (I's walk tests only the
+// (ray, child) pairs its rays ask for: intersect_common.cuh). Bytes: a tile
+// reads its rays (3.5 KB), the box table (L2-resident) and 6 KB per visited
+// cluster, and writes 8 or 1 bytes a ray. 11.7 KB of static shared memory at
+// most.
 //
 // `tile_cull` (intersect_cull.cuh) is a __device__ function of its own: the
 // stand-alone cull kernel of cull.cu is a thin __global__ around it.
@@ -108,15 +110,14 @@ __global__ void __launch_bounds__(TILE) fused_anyhit_super_kernel(
     const float* __restrict__ tri, const float* __restrict__ bounds,
     const float* __restrict__ aabbs, const float* __restrict__ rays, int B, int n_box,
     float t_min, float refine_rel, float refine_abs, uint8_t* __restrict__ occ_out) {
-  __shared__ WalkSmem sm;
-  __shared__ SuperSmem ss;
+  __shared__ AnyhitSuperSmem sm;
   __shared__ CullSmem cs;
   const int r = blockIdx.x * TILE + threadIdx.x;
   Ray q = load_ray_nofar(rays, B, r);
   const int n = tile_cull(aabbs, n_box, q, cs);
   occ_out[r] =
       walk_anyhit_super(tri, bounds, cs.list, cs.entry, n, q, t_min, refine_rel, refine_abs,
-                        sm, ss)
+                        sm)
           ? 1 : 0;
 }
 

@@ -14,13 +14,21 @@
 // child AABBs and live flags (`pack_bounds`, 7 x 16 floats) in shared
 // memory. Every thread slab-tests its own ray against the 16 children with
 // its own limit (closest hit: its running best; any hit: tmax, and nothing
-// at all once the ray is blocked or dead) into a 16-bit mask. The masks are
-// OR-ed across the block (a warp reduction, then four words in shared
-// memory). The block then visits the set children in ascending order:
-// stages the child's packed triangles (6 KB) and tests them as the flat
-// walks do, each thread skipping a child its own mask excludes. Children
-// whose live flag is 0 (empty clusters and the slots past the last cluster)
-// are never staged, so no read goes past the triangle table.
+// at all once the ray is blocked or dead) into a 16-bit mask.
+// Closest hit (D): the masks are OR-ed across the block (a warp reduction,
+// then four words in shared memory). The block then visits the set children
+// in ascending order: stages the child's packed triangles (6 KB) and tests
+// them as the flat walks do, each thread skipping a child its own mask
+// excludes.
+// Any hit (E): the walk is pair-parallel. The block lists, for each child,
+// the rays whose mask asks for it; for each listed child, thread i holds
+// triangle i in registers and tests it against the listed rays, so a visit
+// costs the (ray, child) pairs asked for, not 128 serial tests a child while
+// the lanes whose ray did not ask wait. Shadow rays fan out from a tile's hit
+// points to the whole light, so a tile's rays ask for few children each but
+// many in all (walk_anyhit_super in intersect_common.cuh has the details).
+// Children whose live flag is 0 (empty clusters and the slots past the last
+// cluster) are never read, so no read goes past the triangle table.
 //
 // The refinement is only a cull. Its reciprocal is the IEEE 1 / d of the
 // cull in ops/intersect.py (`refine_children` there states the same test in
@@ -33,14 +41,15 @@
 // visits, never a wrong hit.
 //
 // What bounds it on the H100. As the flat walks: fp32 issue rate times the
-// number of child clusters a tile must visit (each visit is 128 x 128
-// ray-triangle tests of ~30 operations on shared-memory broadcasts), not
-// device memory. A tile reads its rays once (4 KB), 448 bytes per listed
-// supercluster and 6 KB per visited child. 128 threads and 6.6 KB of shared
-// memory a block leave occupancy to the register count. The design answers
-// the bound by visiting fewer children (refinement against the running
-// best, early exit between superclusters, per-thread skipping). Double
-// buffering of the staged child with cp.async or TMA is later work.
+// ray-triangle tests (~30 operations each) the walk makes, not device
+// memory. A tile reads its rays once (4 KB), 448 bytes per listed
+// supercluster and 6 KB per visited child, all L2-resident. 128 threads and
+// 6.6 KB of shared memory a block leave occupancy to the register count. D
+// answers the bound by visiting fewer children (refinement against the
+// running best, early exit between superclusters, per-thread skipping); its
+// visit still costs 128 x 128 tests however few of the tile's rays asked
+// for the child. E makes only the tests its rays ask for, and loads the next
+// child's triangles into registers while it tests the current one.
 //
 // Numerics and ties as in intersect.cu: no fast math, --fmad=false, among
 // equal t the smallest triangle index wins across clusters.
@@ -78,14 +87,13 @@ __global__ void __launch_bounds__(TILE) anyhit_super_kernel(
     const int* __restrict__ lists, const int* __restrict__ counts,
     const float* __restrict__ entries, const float* __restrict__ rays, int B, int S,
     float t_min, float refine_rel, float refine_abs, uint8_t* __restrict__ occ_out) {
-  __shared__ WalkSmem sm;
-  __shared__ SuperSmem ss;
+  __shared__ AnyhitSuperSmem sm;
   const int tile = blockIdx.x;
   const int r = tile * TILE + threadIdx.x;
   const Ray q = load_ray(rays, B, r);
   const bool blocked =
       walk_anyhit_super(tri, bounds, lists + (size_t)tile * S, entries + (size_t)tile * S,
-                        counts[tile], q, t_min, refine_rel, refine_abs, sm, ss);
+                        counts[tile], q, t_min, refine_rel, refine_abs, sm);
   occ_out[r] = blocked ? 1 : 0;
 }
 

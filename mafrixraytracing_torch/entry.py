@@ -71,13 +71,11 @@ def sharded_train_step(mesh, device=None):
     return float(loss), float(gnorm), params
 
 
-def _dryrun_worker(rank: int, n: int, store: str, device: str) -> None:
+def _dryrun_worker(rank: int, n: int, store: str, device: str | None) -> None:
     from mafrixraytracing_torch.parallel import launch
 
     torch.set_num_threads(1)
     launch.init(f"file://{store}", n, rank, device=device)
-    if torch.device(device).type == "cuda":
-        device = torch.device("cuda", torch.cuda.current_device())
     mesh = launch.global_mesh()
     if (mesh.rank, mesh.world) != (rank, n):
         raise RuntimeError(f"rank {rank} of {n} joined as {mesh}")
@@ -105,8 +103,11 @@ def dryrun_multiprocess(n: int, device=None, timeout_s: float = 300.0) -> None:
             f"{n} ranks on {torch.cuda.device_count()} card(s): NCCL takes one "
             "rank a card; pass device='cpu' for a dry run on the CPU")
     with tempfile.TemporaryDirectory(prefix="mafrix_torch_dryrun_") as tmp:
+        # a rank on the card resolves None to its own card once `init` has
+        # made it current
         launch.spawn_local(_dryrun_worker, n,
-                           (n, os.path.join(tmp, "store"), device.type), timeout_s)
+                           (n, os.path.join(tmp, "store"),
+                            "cpu" if device.type == "cpu" else None), timeout_s)
 
 
 if __name__ == "__main__":

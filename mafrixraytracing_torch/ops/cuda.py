@@ -9,9 +9,12 @@ fresh build), and loaded with `ctypes`. No fast math: the kernels keep IEEE
 division and separate multiply/add rounding, so they agree with their plain
 PyTorch versions.
 
-`LAUNCHES` counts, per kernel, how many times a wrapper launched it; a run
-resets it with `reset_launches()` and reads it afterwards to show that the
-path went through the kernels.
+Every wrapper launches through `launch(name, ...)`: it refuses operands that
+lie on different devices, makes their device the current one for the call and
+passes that device's current stream, so a tensor on a card other than the
+current one launches there. `LAUNCHES` counts, per kernel, how many times it
+was launched; a run resets it with `reset_launches()` and reads it afterwards
+to show that the path went through the kernels.
 """
 from __future__ import annotations
 
@@ -129,13 +132,30 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def same_device(*tensors: torch.Tensor) -> torch.device:
+    """The one device that all `tensors` lie on; ValueError if they lie on
+    several."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError("kernel operands lie on different devices: "
+                         + ", ".join(sorted(map(str, devices))))
+    return devices.pop()
 
 
-def check(err: int, name: str) -> None:
+def launch(name: str, *args) -> None:
+    """Launch kernel `name` through its C entry point `mfx_<name>`. Tensors
+    among `args` go as their data pointers, other values as they are, and the
+    current stream of the tensors' device goes last. The tensors must lie on
+    one device, which is current during the call. Raises if the launch
+    failed; counts it in LAUNCHES."""
+    device = same_device(*(a for a in args if isinstance(a, torch.Tensor)))
+    fn = getattr(lib(), "mfx_" + name)
+    with torch.cuda.device(device):
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
+                 torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
+    LAUNCHES[name] += 1
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:

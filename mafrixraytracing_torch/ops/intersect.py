@@ -237,11 +237,7 @@ def cull_kernel(aabbs, rays, n_box: int = CP):
     entries = torch.empty((tiles, n_box), dtype=torch.float32, device=rays.device)
     counts = torch.empty((tiles,), dtype=torch.int32, device=rays.device)
     far = torch.empty((B,), dtype=torch.float32, device=rays.device)
-    err = cuda.lib().mfx_cull(
-        aabbs.data_ptr(), rays.data_ptr(), B, n_box, lists.data_ptr(),
-        entries.data_ptr(), counts.data_ptr(), far.data_ptr(), cuda.stream_of(rays))
-    cuda.check(err, "cull")
-    cuda.LAUNCHES["cull"] += 1
+    cuda.launch("cull", aabbs, rays, B, n_box, lists, entries, counts, far)
     return lists, counts, entries, far
 
 
@@ -511,12 +507,8 @@ def closest_kernel(tri, lists, counts, entries, rays, t_min: float):
     B, C = rays.shape[1], tri.shape[0]
     t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
     i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
-    err = cuda.lib().mfx_closest(
-        tri.data_ptr(), lists.data_ptr(), counts.data_ptr(), entries.data_ptr(),
-        rays.data_ptr(), B, C, float(t_min), t_out.data_ptr(), i_out.data_ptr(),
-        cuda.stream_of(rays))
-    cuda.check(err, "closest")
-    cuda.LAUNCHES["closest"] += 1
+    cuda.launch("closest", tri, lists, counts, entries, rays, B, C, float(t_min), t_out,
+                i_out)
     return t_out, i_out
 
 
@@ -526,12 +518,7 @@ def anyhit_kernel(tri, lists, counts, entries, rays, t_min: float):
     _check_walk_args(tri, lists, counts, entries, rays)
     B, C = rays.shape[1], tri.shape[0]
     occ = torch.empty((B,), dtype=torch.uint8, device=rays.device)
-    err = cuda.lib().mfx_anyhit(
-        tri.data_ptr(), lists.data_ptr(), counts.data_ptr(), entries.data_ptr(),
-        rays.data_ptr(), B, C, float(t_min), occ.data_ptr(),
-        cuda.stream_of(rays))
-    cuda.check(err, "anyhit")
-    cuda.LAUNCHES["anyhit"] += 1
+    cuda.launch("anyhit", tri, lists, counts, entries, rays, B, C, float(t_min), occ)
     return occ.bool()
 
 
@@ -543,12 +530,8 @@ def closest_dbg_kernel(tri, lists, counts, entries, rays, t_min: float):
     t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
     i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
     walked = torch.empty((B // TILE,), dtype=torch.int32, device=rays.device)
-    err = cuda.lib().mfx_closest_dbg(
-        tri.data_ptr(), lists.data_ptr(), counts.data_ptr(), entries.data_ptr(),
-        rays.data_ptr(), B, lists.shape[1], float(t_min), t_out.data_ptr(),
-        i_out.data_ptr(), walked.data_ptr(), cuda.stream_of(rays))
-    cuda.check(err, "closest_dbg")
-    cuda.LAUNCHES["closest_dbg"] += 1
+    cuda.launch("closest_dbg", tri, lists, counts, entries, rays, B, lists.shape[1],
+                float(t_min), t_out, i_out, walked)
     return t_out, i_out, walked
 
 
@@ -559,12 +542,8 @@ def closest_full_kernel(tri, lists, counts, entries, rays, t_min: float):
     B = rays.shape[1]
     t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
     i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
-    err = cuda.lib().mfx_closest_full(
-        tri.data_ptr(), lists.data_ptr(), counts.data_ptr(), entries.data_ptr(),
-        rays.data_ptr(), B, lists.shape[1], float(t_min), t_out.data_ptr(),
-        i_out.data_ptr(), cuda.stream_of(rays))
-    cuda.check(err, "closest_full")
-    cuda.LAUNCHES["closest_full"] += 1
+    cuda.launch("closest_full", tri, lists, counts, entries, rays, B, lists.shape[1],
+                float(t_min), t_out, i_out)
     return t_out, i_out
 
 
@@ -593,12 +572,8 @@ def closest_super_kernel(tri, bounds, lists, counts, entries, rays,
     B, C, S = rays.shape[1], tri.shape[0], bounds.shape[0]
     t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
     i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
-    err = cuda.lib().mfx_closest_super(
-        tri.data_ptr(), bounds.data_ptr(), lists.data_ptr(), counts.data_ptr(),
-        entries.data_ptr(), rays.data_ptr(), B, C, S, float(t_min),
-        REFINE_REL, REFINE_ABS, t_out.data_ptr(), i_out.data_ptr(), cuda.stream_of(rays))
-    cuda.check(err, "closest_super")
-    cuda.LAUNCHES["closest_super"] += 1
+    cuda.launch("closest_super", tri, bounds, lists, counts, entries, rays, B, C, S,
+                float(t_min), REFINE_REL, REFINE_ABS, t_out, i_out)
     return t_out, i_out
 
 
@@ -609,12 +584,8 @@ def anyhit_super_kernel(tri, bounds, lists, counts, entries, rays,
     _check_super_args(tri, bounds, lists, counts, entries, rays)
     B, C, S = rays.shape[1], tri.shape[0], bounds.shape[0]
     occ = torch.empty((B,), dtype=torch.uint8, device=rays.device)
-    err = cuda.lib().mfx_anyhit_super(
-        tri.data_ptr(), bounds.data_ptr(), lists.data_ptr(), counts.data_ptr(),
-        entries.data_ptr(), rays.data_ptr(), B, C, S, float(t_min),
-        REFINE_REL, REFINE_ABS, occ.data_ptr(), cuda.stream_of(rays))
-    cuda.check(err, "anyhit_super")
-    cuda.LAUNCHES["anyhit_super"] += 1
+    cuda.launch("anyhit_super", tri, bounds, lists, counts, entries, rays, B, C, S,
+                float(t_min), REFINE_REL, REFINE_ABS, occ)
     return occ.bool()
 
 
@@ -684,11 +655,7 @@ def fused_closest_kernel(tri, aabbs, rays, t_min: float):
     B = rays.shape[1]
     t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
     i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
-    err = cuda.lib().mfx_fused_closest(
-        tri.data_ptr(), aabbs.data_ptr(), rays.data_ptr(), B, n_box, float(t_min),
-        t_out.data_ptr(), i_out.data_ptr(), cuda.stream_of(rays))
-    cuda.check(err, "fused_closest")
-    cuda.LAUNCHES["fused_closest"] += 1
+    cuda.launch("fused_closest", tri, aabbs, rays, B, n_box, float(t_min), t_out, i_out)
     return t_out, i_out
 
 
@@ -698,11 +665,7 @@ def fused_anyhit_kernel(tri, aabbs, rays, t_min: float):
     n_box = _check_fused_args(tri, aabbs, rays)
     B = rays.shape[1]
     occ = torch.empty((B,), dtype=torch.uint8, device=rays.device)
-    err = cuda.lib().mfx_fused_anyhit(
-        tri.data_ptr(), aabbs.data_ptr(), rays.data_ptr(), B, n_box, float(t_min),
-        occ.data_ptr(), cuda.stream_of(rays))
-    cuda.check(err, "fused_anyhit")
-    cuda.LAUNCHES["fused_anyhit"] += 1
+    cuda.launch("fused_anyhit", tri, aabbs, rays, B, n_box, float(t_min), occ)
     return occ.bool()
 
 
@@ -713,12 +676,8 @@ def fused_closest_super_kernel(tri, bounds, aabbs, rays, t_min: float):
     B, C = rays.shape[1], tri.shape[0]
     t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
     i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
-    err = cuda.lib().mfx_fused_closest_super(
-        tri.data_ptr(), bounds.data_ptr(), aabbs.data_ptr(), rays.data_ptr(), B, C,
-        n_box, float(t_min), REFINE_REL, REFINE_ABS, t_out.data_ptr(),
-        i_out.data_ptr(), cuda.stream_of(rays))
-    cuda.check(err, "fused_closest_super")
-    cuda.LAUNCHES["fused_closest_super"] += 1
+    cuda.launch("fused_closest_super", tri, bounds, aabbs, rays, B, C, n_box,
+                float(t_min), REFINE_REL, REFINE_ABS, t_out, i_out)
     return t_out, i_out
 
 
@@ -728,12 +687,8 @@ def fused_anyhit_super_kernel(tri, bounds, aabbs, rays, t_min: float):
     n_box = _check_fused_args(tri, aabbs, rays, bounds)
     B, C = rays.shape[1], tri.shape[0]
     occ = torch.empty((B,), dtype=torch.uint8, device=rays.device)
-    err = cuda.lib().mfx_fused_anyhit_super(
-        tri.data_ptr(), bounds.data_ptr(), aabbs.data_ptr(), rays.data_ptr(), B, C,
-        n_box, float(t_min), REFINE_REL, REFINE_ABS, occ.data_ptr(),
-        cuda.stream_of(rays))
-    cuda.check(err, "fused_anyhit_super")
-    cuda.LAUNCHES["fused_anyhit_super"] += 1
+    cuda.launch("fused_anyhit_super", tri, bounds, aabbs, rays, B, C, n_box,
+                float(t_min), REFINE_REL, REFINE_ABS, occ)
     return occ.bool()
 
 

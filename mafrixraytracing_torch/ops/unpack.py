@@ -40,17 +40,19 @@ def fetch_cols_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
 
 def unpack_kernel(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA gather-unpack kernel: (P, 36) f32 table, (B,) int64
-    idx -> (36, B) f32."""
+    idx -> (36, B) f32, bit-equal to `fetch_cols_reference`. The table's base
+    must be 16-byte aligned (the kernel reads rows in 16-byte pieces)."""
     cuda.require(table, "table", torch.float32)
     cuda.require(idx, "idx", torch.int64)
     if table.ndim != 2 or table.shape[1] != COLS:
         raise ValueError(f"table must be (P, {COLS}), got {tuple(table.shape)}")
     B, P = idx.shape[0], table.shape[0]
+    if P == 0 and B > 0:
+        raise ValueError("table has no rows to gather from")
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned")
     out = torch.empty((COLS, B), dtype=torch.float32, device=table.device)
-    err = cuda.lib().mfx_unpack(table.data_ptr(), idx.data_ptr(), B, P,
-                                out.data_ptr(), cuda.stream_of(table))
-    cuda.check(err, "unpack")
-    cuda.LAUNCHES["unpack"] += 1
+    cuda.launch("unpack", table, idx, B, P, out)
     return out
 
 
@@ -96,12 +98,8 @@ def scatter_kernel(ct: torch.Tensor, idx: torch.Tensor,
         torch.arange(num_rows + 1, dtype=torch.int32, device=ct.device))
     part = torch.empty((-(-B // SCATTER_CHUNK), 2, K), dtype=torch.float32,
                        device=ct.device)
-    err = cuda.lib().mfx_scatter(
-        ct.data_ptr(), ct.stride(0), ct.stride(1), order.values.data_ptr(),
-        order.indices.data_ptr(), starts.data_ptr(), B, num_rows, K,
-        out.data_ptr(), part.data_ptr(), cuda.stream_of(ct))
-    cuda.check(err, "scatter")
-    cuda.LAUNCHES["scatter"] += 1
+    cuda.launch("scatter", ct, ct.stride(0), ct.stride(1), order.values,
+                order.indices, starts, B, num_rows, K, out, part)
     return out
 
 

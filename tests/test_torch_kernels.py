@@ -10,13 +10,18 @@ against its plain version on the card: closest-hit `idx` equal and `t`
 within rtol 1e-4 / atol 1e-5 (the search contract; the kernels are built
 to agree bit for bit), any-hit and the gather exactly, for the flat walks
 (A, B) and the two-level walks (D, E: small scenes with `SUPER_MIN_C`
-patched to 0, and a mesh of 20,000 triangles); the fused-cull searches (F, G,
+patched to 0, a mesh of 20,000 triangles, and hand-built inputs of E: a
+tile whose rays each ask for another child, a NaN ray, a dead tile, every
+ray blocked in the first child, a ray that asks for all 16); the gather (C)
+at ragged sizes, with clamped indices and as a pure unpack, bit for bit;
+the fused-cull searches (F, G,
 H, I) bit for bit against their plain versions and against A, B, D, E fed by
 the PyTorch cull on the same rays; the cull kernel (K) bit for bit against
 `cull_reference`, and the list walks fed by it against the same walks fed by
 the PyTorch cull; the counting walk and the walk without early exit bit for
-bit against A and against their step-by-step plain versions; the scatter-add (J) within
-1e-5 of the sum of |terms| of a float64 sum and bit-equal across launches;
+bit against A and against their step-by-step plain versions; the scatter-add (J), and
+its plain version (`index_add_`'s float atomics), each within 1e-5 of the sum
+of |terms| of a float64 sum, J bit-equal across launches;
 a gradient evaluation of `opt.inverse` bit-equal when repeated; and a small render
 through the kernels against the same render on the CPU (image rtol 1e-3 /
 atol 1e-4 on 99.5% of pixels: the two devices' sin/cos/sqrt round
@@ -530,26 +535,220 @@ def scatter_case(name, cols, device):
             torch.as_tensor(idx, dtype=torch.int64).to(device), P)
 
 
+def float64_sum(ct, idx, P):
+    """(the float64 scatter-add of ct (K, B) by idx, its bound per entry:
+    1e-5 * the float64 sum of |terms| + 1e-6)."""
+    oracle = torch.zeros((P, ct.shape[0]), dtype=torch.float64, device=ct.device)
+    oracle.index_add_(0, idx, ct.t().double())
+    mass = torch.zeros_like(oracle).index_add_(0, idx, ct.t().double().abs())
+    return oracle, 1e-5 * mass + 1e-6
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cols", [1, 3, 16, 36])
 @pytest.mark.parametrize("name", ["few_rows", "many_rows", "one_row", "tiny",
                                   "runs"])
 def test_scatter_kernel_matches_plain_version(card, name, cols):
-    """Kernel J against a float64 sum (|error| <= 1e-5 * sum of |terms| +
-    1e-6 per entry: float32 sums in another order), against its plain
-    version, on strided cotangents, and bit-equal across two launches."""
+    """Kernel J and its plain version each against a float64 sum (|error| <=
+    1e-5 * sum of |terms| + 1e-6 per entry: float32 sums in another order),
+    J on strided cotangents, and bit-equal across two launches."""
     ct, idx, P = scatter_case(name, cols, card)
     out = ou.scatter_kernel(ct, idx, P)
     torch.cuda.synchronize()
-    oracle = torch.zeros((P, cols), dtype=torch.float64, device=card)
-    oracle.index_add_(0, idx, ct.t().double())
-    mass = torch.zeros_like(oracle).index_add_(0, idx, ct.t().double().abs())
-    assert bool(((out.double() - oracle).abs() <= 1e-5 * mass + 1e-6).all())
-    torch.testing.assert_close(out, ou.scatter_rows_reference(ct, idx, P),
-                               rtol=1e-4, atol=1e-4)
+    oracle, tol = float64_sum(ct, idx, P)
+    assert bool(((out.double() - oracle).abs() <= tol).all())
+    # the plain version is `index_add_` with float atomics, whose order
+    # changes from run to run: it is held to the same float64 sum by the same
+    # bound, not to the kernel
+    plain = ou.scatter_rows_reference(ct, idx, P)
+    assert bool(((plain.double() - oracle).abs() <= tol).all())
     assert torch.equal(out, ou.scatter_kernel(ct, idx, P))
     rows = ct.t().contiguous()           # the same values as (B, K) rows
     assert torch.equal(out, ou.scatter_kernel(rows.t(), idx, P))
+
+
+UNPACK_B = [1, 3, 127, 128, 129, 4097, 524_288]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 136, 65_544])
+@pytest.mark.parametrize("B", UNPACK_B)
+def test_unpack_kernel_bit_equal_to_plain_version(card, B, P):
+    """C at ragged batch sizes (B not a multiple of the block, nor of 4) and
+    table sizes, indices outside [0, P) clamped, bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(B + P)
+    table = torch.randn((P, 36), generator=gen, device=card)
+    idx = torch.randint(-3, P + 3, (B,), generator=gen, device=card)
+    got = ou.unpack_kernel(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ou.fetch_cols_reference(table, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", UNPACK_B)
+def test_unpack_kernel_pure_unpack_is_the_transpose(card, B):
+    """C with idx = arange(B) over a (B, 36) table: the Pallas unpack
+    kernels' contract, bit-equal to the transpose."""
+    rows = torch.randn((B, 36), generator=torch.Generator(device=card).manual_seed(B),
+                       device=card)
+    got = ou.unpack_kernel(rows, torch.arange(B, device=card))
+    torch.cuda.synchronize()
+    assert torch.equal(got, rows.t())
+
+
+@pytest.mark.cuda
+def test_unpack_kernel_refuses_a_misaligned_table(card):
+    """A table view whose base is 4 bytes past a 16-byte boundary is refused
+    (the kernel reads 16-byte pieces), never sent to the plain version; its
+    aligned copy launches."""
+    P, B = 1000, 5001
+    flat = torch.randn(P * 36 + 1, device=card)
+    table = flat[1:].view(P, 36)
+    assert table.data_ptr() % 16 == 4 and table.is_contiguous()
+    idx = torch.randint(0, P, (B,), device=card)
+    cuda.reset_launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ou.gather_unpack(table, idx)
+    assert cuda.LAUNCHES["unpack"] == 0
+    copy = table.clone()
+    assert torch.equal(ou.gather_unpack(copy, idx), ou.fetch_cols_reference(copy, idx))
+    assert cuda.LAUNCHES["unpack"] == 1
+
+
+def hand_scene(corners, device):
+    """Clusters of one right triangle each, legs of 1 along x and y in the
+    plane z = corner z, at `corners` (C, 3), C a multiple of 16; the other 127
+    slots of a cluster are degenerate (never hit). A cluster's box is the unit
+    square above its corner, so a ray through the square's far half enters
+    the box and misses the triangle. Superclusters of 16 consecutive
+    clusters. What `_prep` reads of a compiled scene."""
+    from types import SimpleNamespace
+
+    corners = torch.as_tensor(np.asarray(corners, np.float32), device=device)
+    C = corners.shape[0]
+    v0 = corners.repeat_interleave(oi.CLUSTER_SIZE, dim=0)
+    e1 = torch.zeros_like(v0)
+    e2 = torch.zeros_like(v0)
+    e1[::oi.CLUSTER_SIZE, 0] = 1.0
+    e2[::oi.CLUSTER_SIZE, 1] = 1.0
+    cmax = corners + torch.tensor([1.0, 1.0, 0.0], device=device)
+    return SimpleNamespace(
+        tri_v0=v0, tri_e1=e1, tri_e2=e2, num_mega=0, num_live_spheres=0,
+        cluster_min=corners, cluster_max=cmax,
+        super_min=corners.reshape(C // 16, 16, 3).amin(dim=1),
+        super_max=cmax.reshape(C // 16, 16, 3).amax(dim=1))
+
+
+def _along_z(xy, t_max, device):
+    """Rays from (x, y, 0) along +z."""
+    xy = np.asarray(xy, np.float32)
+    n = xy.shape[0]
+    o = V3.of(torch.as_tensor(np.concatenate([xy, np.zeros((n, 1), np.float32)], 1),
+                              device=device))
+    d = V3.of(torch.as_tensor(np.tile(np.float32([0.0, 0.0, 1.0]), (n, 1)), device=device))
+    return o, d, torch.as_tensor(np.asarray(t_max, np.float32), device=device)
+
+
+ANYHIT_CASES = ["fan_out", "nan_ray", "all_dead", "blocked_first_child", "all_children"]
+
+
+def anyhit_case(name, device):
+    """(scene, o, d, t_max, dead tile) of one hand-built input of kernel E.
+    fan_out: 128 clusters in a row along x (8 superclusters), ray r through
+    cluster r's square, so the tile's 128 rays each ask for another child;
+    even rays hit, odd rays pass the far half. nan_ray: as fan_out with a NaN
+    origin and a NaN direction. all_dead: as fan_out with a second tile of
+    dead rays, whose list the test fills with every supercluster. Then 16
+    clusters stacked along z (one supercluster): blocked_first_child, every
+    ray through the near half, blocked by the first child; all_children, ray
+    0 through the far half of every square, asking for all 16 children and
+    hitting none, ray 1 the same with a tmax between the fourth and the fifth
+    child, the others hit."""
+    rs = np.random.default_rng(len(name))
+    r = np.arange(oi.TILE)
+    if name in ("fan_out", "nan_ray", "all_dead"):
+        scene = hand_scene([(2.0 * c, 0.0, 5.0) for c in range(128)], device)
+        off = np.where(r % 2, 0.75, 0.25).astype(np.float32)
+        xy = np.stack([2.0 * r + off, off], 1)
+        t_max = np.full(oi.TILE, 10.0)
+        if name == "all_dead":
+            xy = np.concatenate([xy, xy])
+            t_max = np.concatenate([t_max, np.zeros(oi.TILE)])
+        o, d, tm = _along_z(xy, t_max, device)
+        if name == "nan_ray":
+            o.x[5] = float("nan")
+            d.z[6] = float("nan")
+        return scene, o, d, tm, name == "all_dead"
+    scene = hand_scene([(0.0, 0.0, 5.0 + j) for j in range(16)], device)
+    xy = rs.uniform(0.02, 0.45, (oi.TILE, 2))
+    t_max = np.full(oi.TILE, 100.0)
+    if name == "all_children":
+        xy[:2] = 0.75
+        t_max[1] = 8.5
+    o, d, tm = _along_z(xy, t_max, device)
+    return scene, o, d, tm, False
+
+
+def anyhit_case_walks(name, device, monkeypatch):
+    """E's and I's operands for one hand-built input (`_prep`, list and
+    fused); for all_dead, the dead tile lists every supercluster."""
+    monkeypatch.setattr(oi, "SUPER_MIN_C", 0)
+    scene, o, d, t_max, dead_tile = anyhit_case(name, device)
+    walk, *_ = oi._prep(scene, o, d, T_MIN, t_max, anyhit=True)
+    fwalk, *_ = oi._prep(scene, o, d, T_MIN, t_max, anyhit=True, fused=True)
+    assert oi._is_super(walk) and oi._is_super(fwalk) and oi._is_fused(fwalk)
+    if dead_tile:
+        tri, bounds, lists, counts, entries, rays = walk
+        S = bounds.shape[0]
+        lists, counts, entries = lists.clone(), counts.clone(), entries.clone()
+        lists[1] = torch.arange(S, dtype=torch.int32, device=device)
+        counts[1] = S
+        entries[1] = 0.0
+        walk = (tri, bounds, lists, counts, entries, rays)
+    return walk, fwalk
+
+
+@pytest.mark.parametrize("name", ANYHIT_CASES)
+def test_hand_built_anyhit_inputs_ask_as_designed(name, monkeypatch):
+    """On the CPU: the hand-built inputs of E ask for the children they are
+    built to ask for (`refine_children`), and the plain version occludes the
+    rays they are built to occlude."""
+    walk, _ = anyhit_case_walks(name, "cpu", monkeypatch)
+    tri, bounds, lists, counts, entries, rays = walk
+    asks = oi.refine_children(bounds, rays, rays[6]).reshape(rays.shape[1], -1)
+    occ = oi.anyhit_super_reference(*walk, T_MIN)
+    n = asks[:oi.TILE].sum(dim=1)
+    even = torch.arange(oi.TILE) % 2 == 0
+    if name == "fan_out":
+        assert (n == 1).all() and torch.equal(asks[:oi.TILE].float().argmax(dim=1),
+                                              torch.arange(oi.TILE))
+        assert torch.equal(occ, even)
+    elif name == "nan_ray":
+        assert n[5] == 0 and n[6] == 0 and not occ[5] and not occ[6]
+        keep = torch.ones(oi.TILE, dtype=torch.bool)
+        keep[5:7] = False
+        assert torch.equal(occ[keep], even[keep])
+    elif name == "all_dead":
+        assert int(counts[1]) == bounds.shape[0] and not occ[oi.TILE:].any()
+        assert torch.equal(occ[:oi.TILE], even)
+    elif name == "blocked_first_child":
+        assert (n == 16).all() and occ.all()
+    else:
+        assert n[0] == 16 and n[1] == 4 and not occ[0] and not occ[1] and occ[2:].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ANYHIT_CASES)
+def test_anyhit_super_kernel_on_hand_built_inputs(card, monkeypatch, name):
+    """E equal to its plain version, and I bit-equal to E, on the hand-built
+    inputs: a tile of 128 rays that each ask for another child, a NaN ray, a
+    dead tile that lists every supercluster, every ray blocked in the first
+    child, a ray that asks for all 16 children."""
+    walk, fwalk = anyhit_case_walks(name, card, monkeypatch)
+    occ = oi.anyhit_super_kernel(*walk, T_MIN)
+    torch.cuda.synchronize()
+    assert torch.equal(occ, oi.anyhit_super_reference(*walk, T_MIN))
+    assert torch.equal(oi.fused_anyhit_super_kernel(*fwalk, T_MIN), occ)
 
 
 @pytest.mark.cuda
