@@ -22,11 +22,15 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    `scene.assets.mesh_scene`: primary and shadow rays at B = 524,288, the
    shadow rays less their last 287 (a batch that is not a multiple of the
    tile), and a non-aligned batch of unrelated rays (incoherent tiles) with
-   ~10% dead rays. For the any-hit walk on the three shadow-like inputs, its
-   fan-out counted in PyTorch: the children a tile's rays ask for in all
-   (what a walk that stages every asked-for child for the whole tile stages:
-   an upper bound) against the (ray, child) pairs they ask for and the pairs
-   the answer needs. The gather also as a pure unpack
+   ~10% dead rays. The two-level closest-hit kernel must equal its plain
+   version bit for bit on every input. For the any-hit walk on the three
+   shadow-like inputs, its fan-out counted in PyTorch: the children a tile's
+   rays ask for in all (what a walk that stages every asked-for child for the
+   whole tile stages: an upper bound) against the (ray, child) pairs they
+   ask for and the pairs the answer needs; for the closest-hit walk on the
+   primary rays and the incoherent tiles the same counts, each at the rays'
+   final t (a lower bound) and at tmax (an upper bound). The gather also as
+   a pure unpack
    (idx = arange(B) over a (B, 36) table, B a multiple of 1024: the contract
    of the Pallas unpack kernels), bit-equal to the transpose, and at a
    batch that is not a multiple of 4. The scatter-add
@@ -118,9 +122,10 @@ device. Imports no JAX.
 
     python3 chip_smoke.py --walks LABEL OUT_DIR
 
-times only the gather and the two-level walks on the mesh's queries of phase
-2 (`time_walks`), one JSON line tagged LABEL, and saves E's outputs in
-OUT_DIR or compares them with a run's saved there. To compare two checkouts
+times only the gather and the two-level walks (D beside H, E beside I) on
+the mesh's queries of phase 2 (`time_walks`), with D's fan-out, one JSON line
+tagged LABEL, and saves D's and E's outputs in OUT_DIR or compares them with
+a run's saved there (a difference fails the run). To compare two checkouts
 on one card, copy this script into the other one's root and run the two in
 turns (parent, change, change, parent) with the same OUT_DIR.
 
@@ -332,15 +337,12 @@ def walk_bound(scene, walk, t_min, t_final=None, occ=None, fused_walk=None):
                 ray_cluster_pairs=pairs, **extra)
 
 
-def anyhit_fanout(walk, t_min, needed_pairs):
-    """The fan-out of a two-level any-hit input, counted in PyTorch: per tile,
-    the children that a walk staging every child any ray of the tile asks for
-    would stage (the union over the tile's live rays of `refine_children` at
-    limit tmax over the listed superclusters: an upper bound, since a blocked
-    ray stops asking and the walk stops at its exit), and the (ray, child)
-    pairs those rays ask for. pairs / (128 x staged) is the share of a 128-lane
-    block that such a walk keeps busy; `needed_pairs` (`walk_bound`'s count)
-    is what the answer needs."""
+def count_asks(walk, limit):
+    """The children a two-level walk input's rays ask for, counted in PyTorch:
+    `refine_children` at `limit` (B,) over each tile's listed superclusters ->
+    ((ray, child) pairs asked, children asked by some ray of the tile, summed
+    over the tiles). The second is what a walk that stages every child any
+    ray of its tile asks for stages."""
     import torch
 
     from mafrixraytracing_torch.ops import intersect as oi
@@ -351,7 +353,6 @@ def anyhit_fanout(walk, t_min, needed_pairs):
     member = torch.zeros((tiles, S + 1), dtype=torch.bool, device=rays.device)
     member.scatter_(1, torch.where(slot, lists.long(), S), True)
     member = member[:, :S, None]
-    limit = torch.where(rays[6] > t_min, rays[6], -oi.BIG)
     staged = asked = 0
     step = 1 << 16
     for s in range(0, rays.shape[1], step):
@@ -360,6 +361,24 @@ def anyhit_fanout(walk, t_min, needed_pairs):
         keep = keep.reshape(-1, oi.TILE, S, oi.SUPER) & member[s // oi.TILE:e // oi.TILE, None]
         asked += int(keep.sum())
         staged += int(keep.any(dim=1).sum())
+    return asked, staged
+
+
+def anyhit_fanout(walk, t_min, needed_pairs):
+    """The fan-out of a two-level any-hit input: per tile, the children that a
+    walk staging every child any ray of the tile asks for would stage (at
+    limit tmax: an upper bound, since a blocked ray stops asking and the walk
+    stops at its exit), and the (ray, child) pairs those rays ask for.
+    pairs / (128 x staged) is the share of a 128-lane block that such a walk
+    keeps busy; `needed_pairs` (`walk_bound`'s count) is what the answer
+    needs."""
+    import torch
+
+    from mafrixraytracing_torch.ops import intersect as oi
+
+    rays = walk[5]
+    asked, staged = count_asks(walk, torch.where(rays[6] > t_min, rays[6], -oi.BIG))
+    tiles = walk[2].shape[0]
     return dict(tiles=tiles, children_staged=staged, pairs_asked=asked,
                 pairs_needed=needed_pairs,
                 lane_use=asked / max(1, oi.TILE * staged),
@@ -374,11 +393,45 @@ def print_fanout(f, label):
           f"{f['lane_use']:.4f} (asked), {f['needed_share']:.4f} (needed)")
 
 
+def closest_fanout(walk, t_min, t_final, needed_pairs):
+    """The fan-out of a two-level closest-hit input. A ray asks for a
+    supercluster's children against its best at the start of that
+    supercluster, which lies between its final t and its tmax, so each count
+    comes twice: at the final t (a lower bound) and at tmax (an upper bound).
+    Per tile: the children a walk staging every child any ray of the tile
+    asks for stages, and the (ray, child) pairs asked; `needed_pairs`
+    (`walk_bound`'s count, at the final t) is what the answer needs."""
+    import torch
+
+    from mafrixraytracing_torch.ops import intersect as oi
+
+    rays = walk[5]
+    live = rays[6] > t_min
+    lo = count_asks(walk, torch.where(live, t_final, -oi.BIG))
+    hi = count_asks(walk, torch.where(live, rays[6], -oi.BIG))
+    tiles = walk[2].shape[0]
+    return dict(tiles=tiles, children_staged_lo=lo[1], children_staged_hi=hi[1],
+                pairs_asked_lo=lo[0], pairs_asked_hi=hi[0], pairs_needed=needed_pairs,
+                lane_use_lo=lo[0] / max(1, oi.TILE * lo[1]),
+                lane_use_hi=hi[0] / max(1, oi.TILE * hi[1]))
+
+
+def print_closest_fanout(f, label):
+    n = f["tiles"]
+    print(f"  closest_super fan-out {label}: {n} tiles, children staged a tile "
+          f"{f['children_staged_lo'] / n:.2f} (at the final t) to "
+          f"{f['children_staged_hi'] / n:.2f} (at tmax), (ray, child) pairs asked a tile "
+          f"{f['pairs_asked_lo'] / n:.1f} to {f['pairs_asked_hi'] / n:.1f} "
+          f"({f['pairs_asked_lo']} to {f['pairs_asked_hi']}), needed {f['pairs_needed']}; "
+          f"lanes busy a staged child {f['lane_use_lo']:.4f} to {f['lane_use_hi']:.4f}")
+
+
 def compare_closest(walk, t_min, label, same_as=None):
     """A closest-hit kernel against its plain version on one walk input, and
     (`same_as`: another kernel's (t, idx) on the same rays) bit for bit
-    against that kernel. The fused kernels must equal their plain versions
-    bit for bit too. Returns (max |dt|, t, idx, the plain version's ms)."""
+    against that kernel. The two-level and the fused kernels must equal their
+    plain versions bit for bit too. Returns (max |dt|, t, idx, the plain
+    version's ms)."""
     import torch
 
     from mafrixraytracing_torch.ops import intersect as oi
@@ -398,8 +451,8 @@ def compare_closest(walk, t_min, label, same_as=None):
           + ("" if same_as is None else
              f" bit-equal to the list kernel={torch.equal(tk, same_as[0]) and torch.equal(ik, same_as[1])}"))
     check(bad_idx == 0 and t_ok, f"closest kernel disagrees on {label}")
-    if oi._is_fused(walk):
-        check(exact, f"fused closest kernel is not bit-equal to its plain version on {label}")
+    if oi._is_fused(walk) or oi._is_super(walk):
+        check(exact, f"closest kernel is not bit-equal to its plain version on {label}")
     if same_as is not None:
         check(torch.equal(tk, same_as[0]) and torch.equal(ik, same_as[1]),
               f"fused closest kernel differs from the list kernel on {label}")
@@ -874,6 +927,8 @@ def phase_kernels_mesh(torch, dev, records, cornell_idx, cornell_P):
     err_c, t_k, i_k, ms_cp = compare_closest(walk, t_min, "mesh primary")
     ms_c = time_ms(lambda: oi.closest_super_kernel(*walk, t_min))
     bound_c = walk_bound(scene, walk, t_min, t_final=t_k)
+    print_closest_fanout(closest_fanout(walk, t_min, t_k, bound_c["ray_cluster_pairs"]),
+                         f"mesh primary, B = {B:,}")
     fused_c = fused_vs_list(scene, o, d, 1e8, False, walk, (t_k, i_k), t_min,
                             "mesh primary")
 
@@ -953,6 +1008,9 @@ def phase_kernels_mesh(torch, dev, records, cornell_idx, cornell_P):
         if name == "anyhit_super":
             print_fanout(anyhit_fanout(w, t_min, b["ray_cluster_pairs"]),
                          f"incoherent tiles, B = {w[-1].shape[1]:,}")
+        else:
+            print_closest_fanout(closest_fanout(w, t_min, t_n, b["ray_cluster_pairs"]),
+                                 f"incoherent tiles, B = {w[-1].shape[1]:,}")
 
     compare_pure_unpack(torch, dev)
     phase_scatter(torch, dev, records, gidx, table.shape[0], cornell_idx, cornell_P)
@@ -984,11 +1042,13 @@ def phase_kernels_mesh(torch, dev, records, cornell_idx, cornell_P):
 
 
 def time_walks(torch, dev, label, out_dir):
-    """`--walks`: the gather (C) and the two-level walks (D, E, and I with its
-    cull) timed on the mesh's queries of phase 2, one JSON line. E's
-    outputs and a hash of the gather's are saved in `out_dir`, or, when a
-    run of another checkout saved them there, compared with those: two
-    checkouts timed in turns on one card must agree bit for bit."""
+    """`--walks`: the gather (C) and the two-level walks (D and H, E and I,
+    H and I with their cull) timed on the mesh's queries of phase 2, with
+    D's fan-out on its two inputs, one JSON line. D's and E's outputs and a
+    hash of the gather's are saved in `out_dir`, or, when a run of another
+    checkout saved them there, compared with those: two checkouts timed in
+    turns on one card must agree bit for bit. H must equal D and I equal E
+    bit for bit."""
     import hashlib
 
     from mafrixraytracing_torch.geometry.intersect import packed_attr_table
@@ -1011,7 +1071,16 @@ def time_walks(torch, dev, label, out_dir):
         rec[f"I {name}"] = time_ms(lambda: oi.fused_anyhit_super_kernel(*fw, t_min))  # noqa: B023
     for name in ("primary", "incoherent"):
         lw, *_ = oi._prep(cs.scene, *rays[name][:2], t_min, rays[name][2], anyhit=False)
+        fw, *_ = oi._prep(cs.scene, *rays[name][:2], t_min, rays[name][2], anyhit=False,
+                          fused=True)
+        t, idx = oi.closest_super_kernel(*lw, t_min)
+        outputs[f"D {name}"] = (t.cpu(), idx.cpu())
+        th, ih = oi.fused_closest_super_kernel(*fw, t_min)
+        rec[f"H equals D, {name}"] = torch.equal(th, t) and torch.equal(ih, idx)
         rec[f"D {name}"] = time_ms(lambda: oi.closest_super_kernel(*lw, t_min))  # noqa: B023
+        rec[f"H {name}"] = time_ms(lambda: oi.fused_closest_super_kernel(*fw, t_min))  # noqa: B023
+        needed = walk_bound(cs.scene, lw, t_min, t_final=t)["ray_cluster_pairs"]
+        rec[f"D fan-out, {name}"] = closest_fanout(lw, t_min, t, needed)
     table = packed_attr_table(cs.scene).contiguous()
     gidx = rays["primary_hits"].clamp(0, table.shape[0] - 1)
     gk = ou.unpack_kernel(table, gidx)
@@ -1026,13 +1095,27 @@ def time_walks(torch, dev, label, out_dir):
     path = os.path.join(out_dir, "walks_outputs.pt")
     if os.path.exists(path):
         saved = torch.load(path)
-        rec["outputs equal to the saved run's"] = all(
-            saved[k] == v if isinstance(v, str) else torch.equal(saved[k], v)
-            for k, v in outputs.items())
+        rec["outputs equal to the saved run's"] = {
+            k: k in saved and same_outputs(saved[k], v) for k, v in outputs.items()}
     else:
         os.makedirs(out_dir, exist_ok=True)
         torch.save(outputs, path)
     print(f"[{label}] " + json.dumps(rec))
+    check(all(v for k, v in rec.items() if k.startswith(("H equals", "I equals"))),
+          "a fused walk differs from its list walk")
+    check(all(rec.get("outputs equal to the saved run's", {}).values()),
+          "the walks' outputs differ from the saved run's")
+
+
+def same_outputs(a, b) -> bool:
+    """Bit-equality of two saved outputs: hashes, tensors or tuples of them."""
+    import torch
+
+    if isinstance(b, str):
+        return a == b
+    if isinstance(b, tuple):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
 
 
 def phase_kernels(torch, dev):

@@ -4,10 +4,11 @@
 // triangle in shared memory or in registers), the block-wide reductions, and
 // the four walks themselves as __device__ functions. intersect_stats.cu
 // instantiates the closest-hit walk with a counter and without its early
-// exit. The two-level any-hit walk (kernels E and I) is pair-parallel: a
-// thread holds a triangle and tests it against the rays that ask for its
-// cluster, where the other walks hold a ray and test it against a staged
-// cluster.
+// exit. The flat walks (kernels A, B, F, G) hold a ray a thread and test it
+// against a staged cluster. The two-level walks (kernels D, E, H, I) are
+// pair-parallel: a thread holds a triangle of a child cluster and tests it
+// against the rays that ask for that child; the closest-hit one keeps each
+// ray's best as a 64-bit integer key in shared memory, lowered by atomicMin.
 //
 // A walk takes its tile's list, entries and count by pointer and value, so
 // the list may live in global memory (the cull ran in PyTorch: kernels A, B,
@@ -101,22 +102,10 @@ __device__ __forceinline__ float block_max(float x, float* s_red) {
   return fmaxf(fmaxf(s_red[0], s_red[1]), fmaxf(s_red[2], s_red[3]));
 }
 
-// OR over the block's 128 threads; ends with every thread holding it.
-__device__ __forceinline__ unsigned block_or(unsigned m, unsigned* s_or) {
-  m = __reduce_or_sync(0xffffffffu, m);
-  if ((threadIdx.x & 31) == 0) s_or[threadIdx.x >> 5] = m;
-  __syncthreads();
-  return s_or[0] | s_or[1] | s_or[2] | s_or[3];
-}
-
-// Shared memory of a flat walk, and what the two-level walks add to it.
+// Shared memory of a flat walk.
 struct WalkSmem {
   __align__(16) float tri[COMP * CLUSTER];  // the staged cluster, 6 KB
   float red[TILE / 32];
-};
-struct SuperSmem {
-  float b[BOUNDS_ROWS * SUPER];  // the staged child boxes
-  unsigned orr[TILE / 32];
 };
 
 // The closest-hit walk over a tile's n listed clusters, front to back (kernels
@@ -213,56 +202,104 @@ __device__ __forceinline__ unsigned refine(const float* s_b, const Ray& q, float
   return mask;
 }
 
-// The closest-hit walk over a tile's n listed superclusters with the child
-// refinement (kernels D and H).
-__device__ __forceinline__ void walk_closest_super(
-    const float* __restrict__ tri, const float* __restrict__ bounds, const int* list,
-    const float* entry, int n, const Ray& q, float t_min, float refine_rel, float refine_abs,
-    WalkSmem& sm, SuperSmem& ss, float& best_t, int& best_i) {
-  const float ix = safe_inverse(q.dx), iy = safe_inverse(q.dy), iz = safe_inverse(q.dz);
-  const bool dead = q.tmax <= t_min;
-  for (int k = 0; k < n; ++k) {
-    // early exit between superclusters as the flat walk's, inclusive; the
-    // reduction's barriers fence ss.b, ss.orr and sm.tri from the last iteration
-    const float worst = block_max(fminf(best_t, q.far), sm.red);
-    if (!(entry[k] <= worst)) break;
-    const int s = list[k];
-    stage_bounds(ss.b, bounds, s);
-    __syncthreads();
-    // a dead ray (tmax <= t_min) asks for no child at all
-    const unsigned mine =
-        dead ? 0u : refine(ss.b, q, ix, iy, iz, best_t, refine_rel, refine_abs);
-    unsigned todo = block_or(mine, ss.orr);
-    while (todo) {
-      const int j = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const int c = s * SUPER + j;
-      __syncthreads();  // the last child's tests are done with sm.tri
-      stage_cluster(sm.tri, tri, c);
-      __syncthreads();
-      if ((mine >> j) & 1u) {
-        const int base = c * CLUSTER;
-        for (int i = 0; i < CLUSTER; ++i) {
-          float t;
-          if (tri_test(sm.tri, i, q, t) && t > t_min &&
-              (t < best_t || (t == best_t && base + i < best_i))) {
-            best_t = t;
-            best_i = base + i;
-          }
-        }
-      }
-    }
-  }
-}
+// --- The pair-parallel two-level walks (kernels D, E, H, I) ---------------
+//
+// The work of a supercluster's visit scales with the (ray, child) pairs the
+// rays ask for, not with the children times 128 serial tests. Per
+// supercluster every ray that still asks refines its 16-bit mask of children
+// (closest hit: against its best at the start of the supercluster; any hit:
+// against tmax); the block lists, for each child, the rays that ask for it (a
+// ballot a warp, offsets by popc). Then for each child that some ray asks
+// for, thread i holds triangle i of the child in registers and tests it
+// against the child's listed rays, whose records sit in shared memory; the
+// next child's triangles are loaded before the current one's tests, so the L2
+// latency hides behind them. A child one ray asks for costs a test a thread,
+// not 128 tests on one thread while 127 wait; a child all 128 rays ask for
+// costs what a staged child cost. The rays ask for the same children as in a
+// walk that holds a ray a thread (the refinement, the list order and the exit
+// between superclusters are unchanged) and make the same tests in the same
+// arithmetic, and what a walk keeps of its tests (an OR, a minimum of integer
+// keys) does not depend on their order, so each walk equals its plain version
+// on every input.
 
-// Shared memory of the two-level any-hit walk (kernels E and I).
-struct AnyhitSuperSmem {
+// Shared memory of a pair-parallel walk.
+struct PairSmem {
   float ray[7][TILE];                 // the tile's rays: ox oy oz dx dy dz tmax
   float b[BOUNDS_ROWS * SUPER];       // the staged child boxes
   int warp_count[SUPER][TILE / 32];   // per child, the rays each warp lists
   uint8_t list[SUPER][TILE];          // per child, the rays that ask for it
+};
+
+// ... of the any-hit walk (kernels E and I)
+struct AnyhitSuperSmem : PairSmem {
   uint8_t blocked[TILE];              // 1 once the ray is occluded
 };
+
+// ... and of the closest-hit walk (kernels D and H)
+struct ClosestSuperSmem : PairSmem {
+  unsigned long long key[TILE];       // per ray, its best (t bits << 32 | index)
+  float red[TILE / 32];
+};
+
+__device__ __forceinline__ void stage_rays(PairSmem& sm, const Ray& q) {
+  const int tid = threadIdx.x;
+  sm.ray[0][tid] = q.ox;
+  sm.ray[1][tid] = q.oy;
+  sm.ray[2][tid] = q.oz;
+  sm.ray[3][tid] = q.dx;
+  sm.ray[4][tid] = q.dy;
+  sm.ray[5][tid] = q.dz;
+  sm.ray[6][tid] = q.tmax;
+}
+
+// Ray r of the tile from shared memory (a broadcast: every lane reads the
+// same ray). `far` is not staged: the tests do not read it.
+__device__ __forceinline__ Ray listed_ray(const PairSmem& sm, int r) {
+  Ray y;
+  y.ox = sm.ray[0][r];
+  y.oy = sm.ray[1][r];
+  y.oz = sm.ray[2][r];
+  y.dx = sm.ray[3][r];
+  y.dy = sm.ray[4][r];
+  y.dz = sm.ray[5][r];
+  y.tmax = sm.ray[6][r];
+  y.far = 0.0f;
+  return y;
+}
+
+// The number of rays listed for child j.
+__device__ __forceinline__ int listed(const PairSmem& sm, int j) {
+  const int* wc = sm.warp_count[j];
+  return wc[0] + wc[1] + wc[2] + wc[3];
+}
+
+// List, for each child, the threads whose `mine` asks for it, in thread
+// order, into sm.list and sm.warp_count; returns the mask of the children
+// some thread asks for (the same on every thread). Every thread calls it; it
+// ends with a barrier, so the lists may be read at once.
+__device__ __forceinline__ unsigned list_children(unsigned mine, PairSmem& sm) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;   // the lanes before this one
+  unsigned ballot[SUPER];
+#pragma unroll
+  for (int j = 0; j < SUPER; ++j) {
+    ballot[j] = __ballot_sync(0xffffffffu, (mine >> j) & 1u);
+    if (lane == 0) sm.warp_count[j][warp] = __popc(ballot[j]);
+  }
+  __syncthreads();
+  unsigned todo = 0;
+#pragma unroll
+  for (int j = 0; j < SUPER; ++j) {
+    if (listed(sm, j) > 0) todo |= 1u << j;
+    if ((mine >> j) & 1u) {
+      int at = __popc(ballot[j] & below);
+      for (int w = 0; w < warp; ++w) at += sm.warp_count[j][w];
+      sm.list[j][at] = (uint8_t)tid;
+    }
+  }
+  __syncthreads();
+  return todo;
+}
 
 // Triangle `lane` of cluster c into registers: one coalesced 6 KB read of the
 // block (the packed (12, 128) layout), straight from the L2-resident table.
@@ -271,6 +308,31 @@ __device__ __forceinline__ void load_tri(float (&c)[COMP], const float* __restri
   const float* src = tri + (size_t)cl * COMP * CLUSTER + threadIdx.x;
 #pragma unroll
   for (int k = 0; k < COMP; ++k) c[k] = __ldg(src + k * CLUSTER);
+}
+
+// visit(cur, j) for each child j of supercluster s in `todo`, in ascending
+// order, with `cur` thread i's triangle of the child in registers; the next
+// child's triangle is loaded before the current one's visit.
+template <class Visit>
+__device__ __forceinline__ void visit_children(const float* __restrict__ tri, int s,
+                                               unsigned todo, Visit&& visit) {
+  if (!todo) return;
+  float cur[COMP], next[COMP];
+  int j = __ffs(todo) - 1;
+  todo &= todo - 1;
+  load_tri(cur, tri, s * SUPER + j);
+  for (;;) {
+    const int jn = todo ? __ffs(todo) - 1 : -1;
+    if (jn >= 0) {
+      todo &= todo - 1;
+      load_tri(next, tri, s * SUPER + jn);
+    }
+    visit(cur, j);
+    if (jn < 0) break;
+#pragma unroll
+    for (int c = 0; c < COMP; ++c) cur[c] = next[c];
+    j = jn;
+  }
 }
 
 // Thread i's triangle (`c`, triangle i of child j) against the m rays that
@@ -283,50 +345,90 @@ __device__ __forceinline__ void test_listed(const float (&c)[COMP], AnyhitSuperS
   for (int p = 0; p < m; ++p) {
     const int r = sm.list[j][p];
     if (blocked[r]) continue;
-    Ray y;
-    y.ox = sm.ray[0][r];
-    y.oy = sm.ray[1][r];
-    y.oz = sm.ray[2][r];
-    y.dx = sm.ray[3][r];
-    y.dy = sm.ray[4][r];
-    y.dz = sm.ray[5][r];
-    y.tmax = sm.ray[6][r];
+    const Ray y = listed_ray(sm, r);
     float t;
     if (tri_test(c, y, t) && t > t_min && t < y.tmax) blocked[r] = 1;
   }
 }
 
-// The any-hit walk over a tile's n listed superclusters (kernels E and I).
-//
-// The work of a visit scales with the (ray, child) pairs the rays ask for,
-// not with the children times 128 serial tests. Per supercluster every
-// unresolved live ray refines its 16-bit mask of children as before; the
-// block lists, for each child, the rays that ask for it (a ballot a warp,
-// offsets by popc). Then for each child that some ray asks for, thread i
-// holds triangle i of the child in registers and tests it against the
-// child's listed rays, whose records sit in shared memory; the next child's
-// triangles are loaded before the current one's tests, so the L2 latency
-// hides behind them. A child one ray asks for costs a test a thread, not 128
-// tests on one thread while 127 wait; a child all 128 rays ask for costs what
-// a staged child cost. The result is the OR over the same tests with the
-// same arithmetic, and the rays ask for the same children (the refinement,
-// the list order and the exit between superclusters are unchanged), so it
-// equals the reference on every input whatever the order of the tests.
+// Thread i's triangle (`c`, global index `id`) against the m rays that ask
+// for child j: each ray's key takes the minimum of (t bits, index) over its
+// hits in (t_min, tmax). Every lane of a warp tests the same ray in the same
+// step, so the warp reduces first (a ballot; the smallest t bits; among the
+// lanes holding them the lowest, whose index is the smallest) and one lane
+// makes one 64-bit atomicMin on the ray's key: at most four atomics a (ray,
+// child) pair, none where no lane hits. t > t_min >= 0, so the bits of t
+// order as unsigned integers; the index breaks ties. Integer minima do not
+// depend on the order of the tests.
+__device__ __forceinline__ void closest_listed(const float (&c)[COMP], ClosestSuperSmem& sm,
+                                               int j, int m, unsigned id, float t_min) {
+  const int lane = threadIdx.x & 31;
+  for (int p = 0; p < m; ++p) {
+    const int r = sm.list[j][p];
+    const Ray y = listed_ray(sm, r);
+    float t = 0.0f;
+    // strictly below tmax, or the untouched key (tmax, ~0u) would lose its tie
+    const bool hit = tri_test(c, y, t) && t > t_min && t < y.tmax;
+    const unsigned hits = __ballot_sync(0xffffffffu, hit);
+    if (!hits) continue;
+    const unsigned tb = hit ? __float_as_uint(t) : 0xffffffffu;
+    const unsigned least = __reduce_min_sync(0xffffffffu, tb);
+    const unsigned first = __ballot_sync(0xffffffffu, hit && tb == least);
+    if (lane == __ffs(first) - 1)
+      atomicMin(&sm.key[r], ((unsigned long long)least << 32) | id);
+  }
+}
+
+// The closest-hit walk over a tile's n listed superclusters (kernels D and
+// H), pair-parallel (see above). best_t and best_i come back as kernel A's:
+// the closest hit in (t_min, tmax), smallest global index on ties; tmax and
+// -1 on a miss. t_min must be >= 0 (the C entry points refuse less).
+__device__ __forceinline__ void walk_closest_super(
+    const float* __restrict__ tri, const float* __restrict__ bounds, const int* list,
+    const float* entry, int n, const Ray& q, float t_min, float refine_rel, float refine_abs,
+    ClosestSuperSmem& sm, float& best_t, int& best_i) {
+  const int tid = threadIdx.x;
+  const float ix = safe_inverse(q.dx), iy = safe_inverse(q.dy), iz = safe_inverse(q.dz);
+  const bool dead = q.tmax <= t_min;
+  stage_rays(sm, q);
+  sm.key[tid] = ((unsigned long long)__float_as_uint(q.tmax) << 32) | 0xffffffffu;
+  for (int k = 0; k < n; ++k) {
+    // the last supercluster's tests are done: the keys are final, the boxes,
+    // counts and lists free
+    __syncthreads();
+    const float best = __uint_as_float((unsigned)(sm.key[tid] >> 32));
+    // early exit between superclusters as the flat walk's, inclusive
+    const float worst = block_max(fminf(best, q.far), sm.red);
+    if (!(entry[k] <= worst)) break;
+    const int s = list[k];
+    stage_bounds(sm.b, bounds, s);
+    __syncthreads();
+    // against the best at the start of the supercluster; a dead ray
+    // (tmax <= t_min) asks for no child at all
+    const unsigned mine =
+        dead ? 0u : refine(sm.b, q, ix, iy, iz, best, refine_rel, refine_abs);
+    const unsigned todo = list_children(mine, sm);
+    visit_children(tri, s, todo, [&](const float (&c)[COMP], int j) {
+      closest_listed(c, sm, j, listed(sm, j), (unsigned)((s * SUPER + j) * CLUSTER + tid),
+                     t_min);
+    });
+  }
+  __syncthreads();
+  const unsigned long long key = sm.key[tid];
+  best_t = __uint_as_float((unsigned)(key >> 32));
+  best_i = (int)(unsigned)key;   // ~0u, which is -1, on a miss
+}
+
+// The any-hit walk over a tile's n listed superclusters (kernels E and I),
+// pair-parallel (see above).
 __device__ __forceinline__ bool walk_anyhit_super(
     const float* __restrict__ tri, const float* __restrict__ bounds, const int* list,
     const float* entry, int n, const Ray& q, float t_min, float refine_rel, float refine_abs,
     AnyhitSuperSmem& sm) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const unsigned below = (1u << lane) - 1u;   // the lanes before this one
+  const int tid = threadIdx.x;
   const float ix = safe_inverse(q.dx), iy = safe_inverse(q.dy), iz = safe_inverse(q.dz);
   const bool dead = q.tmax <= t_min;
-  sm.ray[0][tid] = q.ox;
-  sm.ray[1][tid] = q.oy;
-  sm.ray[2][tid] = q.oz;
-  sm.ray[3][tid] = q.dx;
-  sm.ray[4][tid] = q.dy;
-  sm.ray[5][tid] = q.dz;
-  sm.ray[6][tid] = q.tmax;
+  stage_rays(sm, q);
   sm.blocked[tid] = 0;
   for (int k = 0; k < n; ++k) {
     // the last supercluster's tests are done: the blocked bytes are final,
@@ -342,43 +444,10 @@ __device__ __forceinline__ bool walk_anyhit_super(
     // blocked and dead rays ask for no child at all
     const unsigned mine =
         (blocked || dead) ? 0u : refine(sm.b, q, ix, iy, iz, q.tmax, refine_rel, refine_abs);
-    unsigned ballot[SUPER];
-#pragma unroll
-    for (int j = 0; j < SUPER; ++j) {
-      ballot[j] = __ballot_sync(0xffffffffu, (mine >> j) & 1u);
-      if (lane == 0) sm.warp_count[j][warp] = __popc(ballot[j]);
-    }
-    __syncthreads();
-    unsigned todo = 0;
-#pragma unroll
-    for (int j = 0; j < SUPER; ++j) {
-      const int* wc = sm.warp_count[j];
-      if (wc[0] + wc[1] + wc[2] + wc[3] > 0) todo |= 1u << j;
-      if ((mine >> j) & 1u) {
-        int at = __popc(ballot[j] & below);
-        for (int w = 0; w < warp; ++w) at += wc[w];
-        sm.list[j][at] = (uint8_t)tid;
-      }
-    }
-    __syncthreads();
-    if (!todo) continue;
-    float cur[COMP], next[COMP];
-    int j = __ffs(todo) - 1;
-    todo &= todo - 1;
-    load_tri(cur, tri, s * SUPER + j);
-    for (;;) {
-      const int jn = todo ? __ffs(todo) - 1 : -1;
-      if (jn >= 0) {
-        todo &= todo - 1;
-        load_tri(next, tri, s * SUPER + jn);
-      }
-      const int* wc = sm.warp_count[j];
-      test_listed(cur, sm, j, wc[0] + wc[1] + wc[2] + wc[3], t_min);
-      if (jn < 0) break;
-#pragma unroll
-      for (int c = 0; c < COMP; ++c) cur[c] = next[c];
-      j = jn;
-    }
+    const unsigned todo = list_children(mine, sm);
+    visit_children(tri, s, todo, [&](const float (&c)[COMP], int j) {
+      test_listed(c, sm, j, listed(sm, j), t_min);
+    });
   }
   __syncthreads();
   return sm.blocked[tid] != 0;

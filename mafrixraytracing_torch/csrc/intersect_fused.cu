@@ -44,11 +44,11 @@
 //
 // What bounds it on the H100. Operations, as the list walks: the slab tests
 // add 128 rays x n boxes x ~27 fp32 operations a tile, about the cost of one
-// cluster visit (128 x 128 tests of ~30) at n = 128 (I's walk tests only the
-// (ray, child) pairs its rays ask for: intersect_common.cuh). Bytes: a tile
+// cluster visit (128 x 128 tests of ~30) at n = 128 (H's and I's walks test
+// only the (ray, child) pairs their rays ask for: intersect_common.cuh). Bytes: a tile
 // reads its rays (3.5 KB), the box table (L2-resident) and 6 KB per visited
-// cluster, and writes 8 or 1 bytes a ray. 11.7 KB of static shared memory at
-// most.
+// cluster, and writes 8 or 1 bytes a ray. 12.5 KB of static shared memory at
+// most (H).
 //
 // `tile_cull` (intersect_cull.cuh) is a __device__ function of its own: the
 // stand-alone cull kernel of cull.cu is a thin __global__ around it.
@@ -91,19 +91,17 @@ __global__ void __launch_bounds__(TILE) fused_closest_super_kernel(
     const float* __restrict__ aabbs, const float* __restrict__ rays, int B, int n_box,
     float t_min, float refine_rel, float refine_abs, float* __restrict__ t_out,
     int* __restrict__ i_out) {
-  __shared__ WalkSmem sm;
-  __shared__ SuperSmem ss;
+  __shared__ ClosestSuperSmem sm;
   __shared__ CullSmem cs;
   const int r = blockIdx.x * TILE + threadIdx.x;
   Ray q = load_ray_nofar(rays, B, r);
   const int n = tile_cull(aabbs, n_box, q, cs);
-  float best_t = q.tmax;
-  int best_i = -1;
+  float best_t;
+  int best_i;
   walk_closest_super(tri, bounds, cs.list, cs.entry, n, q, t_min, refine_rel, refine_abs, sm,
-                     ss, best_t, best_i);
-  const bool hit = best_t < q.tmax;
+                     best_t, best_i);
   t_out[r] = best_t;
-  i_out[r] = hit ? best_i : -1;
+  i_out[r] = best_i;
 }
 
 __global__ void __launch_bounds__(TILE) fused_anyhit_super_kernel(
@@ -127,7 +125,8 @@ __global__ void __launch_bounds__(TILE) fused_anyhit_super_kernel(
 // (C, 12, 128); aabbs (8, 128) as `pack_aabbs` makes it, of which the first
 // n_box <= 128 columns are boxes (clusters: n_box = C; superclusters: n_box =
 // S with C <= S * 16 and bounds (S, 7, 16)); rays (8, B) = [ox oy oz dx dy dz
-// tmax -], the last row unread. Each returns cudaGetLastError().
+// tmax -], the last row unread; the two-level closest-hit search takes t_min
+// >= 0 only. Each returns cudaGetLastError().
 extern "C" int mfx_fused_closest(const float* tri, const float* aabbs, const float* rays,
                                  int B, int n_box, float t_min, float* t_out, int* i_out,
                                  cudaStream_t stream) {
@@ -156,7 +155,8 @@ extern "C" int mfx_fused_closest_super(const float* tri, const float* bounds,
                                        float refine_abs, float* t_out, int* i_out,
                                        cudaStream_t stream) {
   const int tiles = B / TILE;
-  if (n_box < 0 || n_box > CP || C > n_box * SUPER) return (int)cudaErrorInvalidValue;
+  if (n_box < 0 || n_box > CP || C > n_box * SUPER || !(t_min >= 0.0f))
+    return (int)cudaErrorInvalidValue;
   if (tiles > 0)
     fused_closest_super_kernel<<<tiles, TILE, 0, stream>>>(
         tri, bounds, aabbs, rays, B, n_box, t_min, refine_rel, refine_abs, t_out, i_out);

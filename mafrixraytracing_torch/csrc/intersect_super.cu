@@ -9,24 +9,26 @@
 // result is the closest hit (any hit, for the second kernel) over all
 // triangles of all live children of the listed superclusters.
 //
-// Layout. One block per 128-ray tile, one thread per ray, as the flat walks
-// in intersect.cu. For each listed supercluster the block stages its 16
-// child AABBs and live flags (`pack_bounds`, 7 x 16 floats) in shared
-// memory. Every thread slab-tests its own ray against the 16 children with
-// its own limit (closest hit: its running best; any hit: tmax, and nothing
-// at all once the ray is blocked or dead) into a 16-bit mask.
-// Closest hit (D): the masks are OR-ed across the block (a warp reduction,
-// then four words in shared memory). The block then visits the set children
-// in ascending order: stages the child's packed triangles (6 KB) and tests
-// them as the flat walks do, each thread skipping a child its own mask
-// excludes.
-// Any hit (E): the walk is pair-parallel. The block lists, for each child,
-// the rays whose mask asks for it; for each listed child, thread i holds
-// triangle i in registers and tests it against the listed rays, so a visit
-// costs the (ray, child) pairs asked for, not 128 serial tests a child while
-// the lanes whose ray did not ask wait. Shadow rays fan out from a tile's hit
-// points to the whole light, so a tile's rays ask for few children each but
-// many in all (walk_anyhit_super in intersect_common.cuh has the details).
+// Layout. One block per 128-ray tile. For each listed supercluster the block
+// stages its 16 child AABBs and live flags (`pack_bounds`, 7 x 16 floats) in
+// shared memory, and every thread slab-tests its own ray against the 16
+// children with its own limit (closest hit: its best at the start of the
+// supercluster; any hit: tmax, and nothing at all once the ray is blocked or
+// dead) into a 16-bit mask. Both walks are then pair-parallel: the block
+// lists, for each child, the rays whose mask asks for it; for each listed
+// child, thread i holds triangle i in registers and tests it against the
+// listed rays, so a visit costs the (ray, child) pairs asked for, not 128
+// serial tests a child while the lanes whose ray did not ask wait. Scattered
+// rays (bounce and shadow rays) make tiles whose rays ask for few children
+// each but many in all.
+// Closest hit (D): each ray's best is a 64-bit key in shared memory, the
+// bits of t (t > t_min >= 0, so they order as unsigned integers) above the
+// triangle index; a warp reduces its lanes' hits on one ray and one lane
+// lowers the key with atomicMin. The minimum of integer keys does not depend
+// on the order of the tests, so the smallest index still wins a tie.
+// Any hit (E): a hit sets the ray's blocked byte; a blocked ray is skipped.
+// walk_closest_super and walk_anyhit_super in intersect_common.cuh have the
+// details.
 // Children whose live flag is 0 (empty clusters and the slots past the last
 // cluster) are never read, so no read goes past the triangle table.
 //
@@ -43,20 +45,19 @@
 // What bounds it on the H100. As the flat walks: fp32 issue rate times the
 // ray-triangle tests (~30 operations each) the walk makes, not device
 // memory. A tile reads its rays once (4 KB), 448 bytes per listed
-// supercluster and 6 KB per visited child, all L2-resident. 128 threads and
-// 6.6 KB of shared memory a block leave occupancy to the register count. D
-// answers the bound by visiting fewer children (refinement against the
-// running best, early exit between superclusters, per-thread skipping); its
-// visit still costs 128 x 128 tests however few of the tile's rays asked
-// for the child. E makes only the tests its rays ask for, and loads the next
-// child's triangles into registers while it tests the current one.
+// supercluster and 6 KB per visited child, all L2-resident. The walks answer
+// the bound by testing fewer pairs (refinement against the best at the start
+// of a supercluster, early exit between superclusters, only the pairs a ray
+// asks for), and load the next child's triangles into registers while they
+// test the current one's. 128 threads a block and 6.4 KB (E) or 7.2 KB (D)
+// of static shared memory leave occupancy to the register count.
 //
 // Numerics and ties as in intersect.cu: no fast math, --fmad=false, among
 // equal t the smallest triangle index wins across clusters.
 //
 // The walks' bodies are the __device__ functions walk_closest_super and
-// walk_anyhit_super of intersect_common.cuh (with stage_bounds, refine and
-// block_or), shared with the fused-cull kernels of intersect_fused.cu.
+// walk_anyhit_super of intersect_common.cuh, shared with the fused-cull
+// kernels of intersect_fused.cu.
 
 #include "intersect_common.cuh"
 
@@ -68,18 +69,16 @@ __global__ void __launch_bounds__(TILE) closest_super_kernel(
     const float* __restrict__ entries, const float* __restrict__ rays, int B, int S,
     float t_min, float refine_rel, float refine_abs, float* __restrict__ t_out,
     int* __restrict__ i_out) {
-  __shared__ WalkSmem sm;
-  __shared__ SuperSmem ss;
+  __shared__ ClosestSuperSmem sm;
   const int tile = blockIdx.x;
   const int r = tile * TILE + threadIdx.x;
   const Ray q = load_ray(rays, B, r);
-  float best_t = q.tmax;
-  int best_i = -1;
+  float best_t;
+  int best_i;
   walk_closest_super(tri, bounds, lists + (size_t)tile * S, entries + (size_t)tile * S,
-                     counts[tile], q, t_min, refine_rel, refine_abs, sm, ss, best_t, best_i);
-  const bool hit = best_t < q.tmax;
+                     counts[tile], q, t_min, refine_rel, refine_abs, sm, best_t, best_i);
   t_out[r] = best_t;
-  i_out[r] = hit ? best_i : -1;
+  i_out[r] = best_i;
 }
 
 __global__ void __launch_bounds__(TILE) anyhit_super_kernel(
@@ -102,15 +101,16 @@ __global__ void __launch_bounds__(TILE) anyhit_super_kernel(
 // C entry points, bound with ctypes. B is a multiple of TILE; tri is
 // (C, 12, 128) with C <= S * 16, bounds (S, 7, 16), lists/entries
 // (B / TILE, S), counts (B / TILE,), rays (8, B) = [ox oy oz dx dy dz tmax
-// far]; refine_rel and refine_abs widen the child refinement's comparisons.
-// Each returns cudaGetLastError().
+// far]; refine_rel and refine_abs widen the child refinement's comparisons;
+// the closest-hit walk takes t_min >= 0 only. Each returns
+// cudaGetLastError().
 extern "C" int mfx_closest_super(const float* tri, const float* bounds, const int* lists,
                                  const int* counts, const float* entries, const float* rays,
                                  int B, int C, int S, float t_min, float refine_rel,
                                  float refine_abs, float* t_out, int* i_out,
                                  cudaStream_t stream) {
   const int tiles = B / TILE;
-  if (C > S * SUPER) return (int)cudaErrorInvalidValue;
+  if (C > S * SUPER || !(t_min >= 0.0f)) return (int)cudaErrorInvalidValue;
   if (tiles > 0)
     closest_super_kernel<<<tiles, TILE, 0, stream>>>(tri, bounds, lists, counts, entries, rays,
                                                       B, S, t_min, refine_rel, refine_abs,

@@ -17,7 +17,8 @@ the cull runs on the superclusters (16 consecutive clusters each, a 16x
 smaller dense pass), the lists hold supercluster ids, and kernels D
 (`closest_super_kernel`) and E (`anyhit_super_kernel`,
 `csrc/intersect_super.cu`) refine each listed supercluster against its 16
-child AABBs (`pack_bounds`) before they stage a child's triangles.
+child AABBs (`pack_bounds`), then test each child's triangles against only
+the rays that ask for it (a thread a triangle).
 
 With `FUSED_CULL` set (off by default, as in the JAX package) the cull moves
 into the walk's block: kernels F, G (flat) and H, I (two-level) of
@@ -564,10 +565,19 @@ def _check_super_args(tri, bounds, lists, counts, entries, rays):
     cuda.require(rays, "rays", torch.float32, (8, B))
 
 
+def _check_t_min(t_min: float) -> None:
+    # kernels D and H order each ray's hits by the bits of t > t_min as
+    # unsigned integers, which holds for t_min >= 0 only
+    if not t_min >= 0.0:
+        raise ValueError(f"the two-level closest-hit kernels take t_min >= 0, got {t_min}")
+
+
 def closest_super_kernel(tri, bounds, lists, counts, entries, rays,
                          t_min: float):
     """Launch kernel D (csrc/intersect_super.cu). Same contract as
-    `closest_super_reference`; int32 lists/counts of supercluster ids."""
+    `closest_super_reference`, for t_min >= 0; int32 lists/counts of
+    supercluster ids."""
+    _check_t_min(t_min)
     _check_super_args(tri, bounds, lists, counts, entries, rays)
     B, C, S = rays.shape[1], tri.shape[0], bounds.shape[0]
     t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
@@ -671,7 +681,8 @@ def fused_anyhit_kernel(tri, aabbs, rays, t_min: float):
 
 def fused_closest_super_kernel(tri, bounds, aabbs, rays, t_min: float):
     """Launch kernel H (csrc/intersect_fused.cu). Same contract as
-    `fused_closest_super_reference`."""
+    `fused_closest_super_reference`, for t_min >= 0."""
+    _check_t_min(t_min)
     n_box = _check_fused_args(tri, aabbs, rays, bounds)
     B, C = rays.shape[1], tri.shape[0]
     t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)

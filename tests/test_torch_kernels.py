@@ -12,7 +12,13 @@ to agree bit for bit), any-hit and the gather exactly, for the flat walks
 (A, B) and the two-level walks (D, E: small scenes with `SUPER_MIN_C`
 patched to 0, a mesh of 20,000 triangles, and hand-built inputs of E: a
 tile whose rays each ask for another child, a NaN ray, a dead tile, every
-ray blocked in the first child, a ray that asks for all 16); the gather (C)
+ray blocked in the first child, a ray that asks for all 16; and of D, bit
+for bit, with H bit-equal to D: the same fan-out, NaN ray and dead tile,
+every lane hitting every ray, ties across children and superclusters, the
+nearest of 16 stacked children last, a hit at exactly tmax); on the CPU
+the same inputs of D against what they are built to give, and a
+step-by-step model of D's pair-parallel walk against its plain version;
+the gather (C)
 at ragged sizes, with clamped indices and as a pure unpack, bit for bit;
 the fused-cull searches (F, G,
 H, I) bit for bit against their plain versions and against A, B, D, E fed by
@@ -258,7 +264,7 @@ def test_super_kernels_match_plain_versions(card, monkeypatch, name, n):
     assert torch.equal(ik, ip)
     if name in ("soup", "bumpy"):   # the others keep most triangles as mega
         assert (ik >= 0).sum() > n // 20
-    torch.testing.assert_close(tk, tp, rtol=1e-4, atol=1e-5)
+    assert torch.equal(tk, tp)      # D is built to agree bit for bit
     t_near = torch.where(ik[:n] >= 0, tk[:n] * 1.01, t_max)
     for t_far in (t_max * 0.4, t_near):
         walk, *_ = oi._prep(ts, o, d, T_MIN, t_far, anyhit=True)
@@ -616,26 +622,33 @@ def test_unpack_kernel_refuses_a_misaligned_table(card):
 
 
 def hand_scene(corners, device):
-    """Clusters of one right triangle each, legs of 1 along x and y in the
-    plane z = corner z, at `corners` (C, 3), C a multiple of 16; the other 127
-    slots of a cluster are degenerate (never hit). A cluster's box is the unit
-    square above its corner, so a ray through the square's far half enters
-    the box and misses the triangle. Superclusters of 16 consecutive
-    clusters. What `_prep` reads of a compiled scene."""
+    """Clusters of right triangles, legs of 1 along x and y in the plane z =
+    corner z. `corners` (C, 3): one triangle a cluster, in its first slot;
+    (C, K, 3): K triangles a cluster, in its first K slots. C is a multiple
+    of 16; the other slots of a cluster are degenerate (never hit). A
+    cluster's box is the union of the unit squares above its corners, so a
+    ray through a square's far half enters the box and misses the triangle.
+    Superclusters of 16 consecutive clusters. What `_prep` reads of a
+    compiled scene."""
     from types import SimpleNamespace
 
     corners = torch.as_tensor(np.asarray(corners, np.float32), device=device)
-    C = corners.shape[0]
-    v0 = corners.repeat_interleave(oi.CLUSTER_SIZE, dim=0)
+    if corners.dim() == 2:
+        corners = corners[:, None]
+    C, K = corners.shape[:2]
+    v0 = torch.zeros((C, oi.CLUSTER_SIZE, 3), device=device)
+    v0[:, :K] = corners
+    v0[:, K:] = corners[:, :1]
     e1 = torch.zeros_like(v0)
     e2 = torch.zeros_like(v0)
-    e1[::oi.CLUSTER_SIZE, 0] = 1.0
-    e2[::oi.CLUSTER_SIZE, 1] = 1.0
-    cmax = corners + torch.tensor([1.0, 1.0, 0.0], device=device)
+    e1[:, :K, 0] = 1.0
+    e2[:, :K, 1] = 1.0
+    cmin = corners.amin(dim=1)
+    cmax = (corners + torch.tensor([1.0, 1.0, 0.0], device=device)).amax(dim=1)
     return SimpleNamespace(
-        tri_v0=v0, tri_e1=e1, tri_e2=e2, num_mega=0, num_live_spheres=0,
-        cluster_min=corners, cluster_max=cmax,
-        super_min=corners.reshape(C // 16, 16, 3).amin(dim=1),
+        tri_v0=v0.reshape(-1, 3), tri_e1=e1.reshape(-1, 3), tri_e2=e2.reshape(-1, 3),
+        num_mega=0, num_live_spheres=0, cluster_min=cmin, cluster_max=cmax,
+        super_min=cmin.reshape(C // 16, 16, 3).amin(dim=1),
         super_max=cmax.reshape(C // 16, 16, 3).amax(dim=1))
 
 
@@ -749,6 +762,237 @@ def test_anyhit_super_kernel_on_hand_built_inputs(card, monkeypatch, name):
     torch.cuda.synchronize()
     assert torch.equal(occ, oi.anyhit_super_reference(*walk, T_MIN))
     assert torch.equal(oi.fused_anyhit_super_kernel(*fwalk, T_MIN), occ)
+
+
+CLOSEST_CASES = ["fan_out", "contention", "ties", "stacked", "at_tmax", "nan_ray",
+                 "dead_tile"]
+
+
+def closest_case(name, device):
+    """(scene, o, d, t_max, dead tile, expected t, expected idx) of one
+    hand-built input of kernel D. All rays run along +z from z = 0.
+    fan_out: 128 clusters in a row along x (8 superclusters), ray r through
+    cluster r's square, so the tile's 128 rays each ask for another child;
+    even rays hit at t = 5, odd rays pass the far half. nan_ray: as fan_out
+    with a NaN origin (ray 5) and a NaN direction (ray 6). dead_tile: as
+    fan_out with a second tile of dead rays, whose list the test fills with
+    every supercluster. contention: every ray through cluster 0, which holds
+    128 triangles at distinct depths but three at the nearest (slots 64, 65
+    and 100: a tie inside a warp and across warps), so every lane of the
+    block hits every ray. ties: rays 0-63 meet the same triangle in clusters
+    2 and 9 (one supercluster), rays 64-127 in clusters 5 and 20 (two
+    superclusters; supercluster 1 is listed first, as cluster 31 puts its
+    box nearer); the smallest index wins. stacked: 16 clusters stacked along
+    z, child 15 the nearest, so every ray asks for all 16 and the last child
+    in ascending order holds the answer. at_tmax: the triangle at t = 5
+    exactly; even rays have tmax = 5 (a miss), odd rays the next float up (a
+    hit)."""
+    rs = np.random.default_rng(len(name))
+    r = np.arange(oi.TILE)
+    near = rs.uniform(0.05, 0.45, (oi.TILE, 2))       # inside a triangle
+    far_ = rs.uniform(0.55, 0.95, (oi.TILE, 2))       # in its box, outside it
+    dead_tile = False
+    if name in ("fan_out", "nan_ray", "dead_tile"):
+        scene = hand_scene([(2.0 * c, 0.0, 5.0) for c in range(128)], device)
+        xy = np.where((r % 2 == 0)[:, None], near, far_) + np.stack([2.0 * r, 0 * r], 1)
+        t_max = np.full(oi.TILE, 10.0, np.float32)
+        t_want = np.where(r % 2 == 0, 5.0, 10.0).astype(np.float32)
+        i_want = np.where(r % 2 == 0, r * oi.CLUSTER_SIZE, -1)
+        if name == "nan_ray":
+            t_want[5:7], i_want[5:7] = 10.0, -1
+        if name == "dead_tile":
+            xy = np.concatenate([xy, xy])
+            t_max = np.concatenate([t_max, np.zeros(oi.TILE, np.float32)])
+            t_want = np.concatenate([t_want, np.zeros(oi.TILE, np.float32)])
+            i_want = np.concatenate([i_want, np.full(oi.TILE, -1)])
+            dead_tile = True
+    elif name == "contention":
+        k = np.arange(oi.CLUSTER_SIZE)
+        z = 5.0 + 0.01 * ((k + 64) % 128)
+        z[[65, 100]] = 5.0
+        slots = np.stack([0 * k, 0 * k, z], 1)
+        others = np.repeat(np.asarray([(3.0 * c, 3.0, 5.0) for c in range(1, 16)])[:, None],
+                           oi.CLUSTER_SIZE, axis=1)
+        scene = hand_scene(np.concatenate([slots[None], others]), device)
+        xy, t_max = near, np.full(oi.TILE, 100.0, np.float32)
+        t_want, i_want = np.full(oi.TILE, 5.0, np.float32), np.full(oi.TILE, 64)
+    elif name == "ties":
+        corners = [(100.0 + 2.0 * c, 50.0, 5.0) for c in range(32)]
+        corners[2] = corners[9] = (0.0, 0.0, 5.0)
+        corners[5] = corners[20] = (3.0, 0.0, 5.0)
+        corners[31] = (2.5, -0.5, 1.0)   # entered by rays 64-127, never hit
+        scene = hand_scene(corners, device)
+        xy = np.where((r < 64)[:, None], near, near + [3.0, 0.0])
+        t_max = np.full(oi.TILE, 100.0, np.float32)
+        t_want = np.full(oi.TILE, 5.0, np.float32)
+        i_want = np.where(r < 64, 2, 5) * oi.CLUSTER_SIZE
+    elif name == "stacked":
+        scene = hand_scene([(0.0, 0.0, 20.0 - j) for j in range(16)], device)
+        xy, t_max = near, np.full(oi.TILE, 100.0, np.float32)
+        t_want, i_want = np.full(oi.TILE, 5.0, np.float32), np.full(oi.TILE, 15 * 128)
+    else:   # at_tmax
+        scene = hand_scene([(3.0 * c, 0.0, 5.0) for c in range(16)], device)
+        xy = near
+        t_max = np.where(r % 2 == 0, np.float32(5.0),
+                         np.nextafter(np.float32(5.0), np.float32(np.inf)))
+        t_want = t_max.astype(np.float32)
+        t_want[1::2] = 5.0
+        i_want = np.where(r % 2 == 0, -1, 0)
+    o, d, tm = _along_z(xy, t_max, device)
+    if name == "nan_ray":
+        o.x[5] = float("nan")
+        d.z[6] = float("nan")
+    return (scene, o, d, tm, dead_tile, torch.as_tensor(t_want, dtype=torch.float32),
+            torch.as_tensor(i_want, dtype=torch.int32))
+
+
+def closest_case_walks(name, device, monkeypatch):
+    """D's and H's operands for one hand-built input (`_prep`, list and
+    fused), with the expected (t, idx); for dead_tile, the dead tile lists
+    every supercluster."""
+    monkeypatch.setattr(oi, "SUPER_MIN_C", 0)
+    scene, o, d, t_max, dead_tile, t_want, i_want = closest_case(name, device)
+    walk, *_ = oi._prep(scene, o, d, T_MIN, t_max, anyhit=False)
+    fwalk, *_ = oi._prep(scene, o, d, T_MIN, t_max, anyhit=False, fused=True)
+    assert oi._is_super(walk) and oi._is_super(fwalk) and oi._is_fused(fwalk)
+    if dead_tile:
+        tri, bounds, lists, counts, entries, rays = walk
+        S = bounds.shape[0]
+        lists, counts, entries = lists.clone(), counts.clone(), entries.clone()
+        lists[1] = torch.arange(S, dtype=torch.int32, device=device)
+        counts[1] = S
+        entries[1] = 0.0
+        walk = (tri, bounds, lists, counts, entries, rays)
+    return walk, fwalk, t_want, i_want
+
+
+def pair_walk_model(walk, t_min):
+    """The pair-parallel walk of kernel D step by step, on the CPU: per tile
+    a 64-bit key a ray ((t bits) << 32 | index, from (tmax, ~0)); per listed
+    supercluster the exit against max over rays of min(best, far), the
+    children each ray asks for (`refine_children` at its best from the key),
+    then for each asked child and each ray listed for it the 128 lanes' tests,
+    reduced a warp at a time (hits strictly inside (t_min, tmax), the least t
+    bits, the lowest lane) and folded into the key by min. Returns (t, idx)
+    as the kernel writes them."""
+    tri, bounds, lists, counts, entries, rays = walk
+    B = rays.shape[1]
+    comp = tri.permute(1, 0, 2)                       # (12, C, 128)
+    t_out = torch.empty(B, dtype=torch.float32)
+    i_out = torch.empty(B, dtype=torch.int32)
+    for tile in range(B // oi.TILE):
+        r = rays[:, tile * oi.TILE:(tile + 1) * oi.TILE]
+        key = [(int(np.float32(x).view(np.uint32)) << 32) | 0xFFFFFFFF for x in r[6].numpy()]
+        for k in range(int(counts[tile])):
+            best = torch.as_tensor(np.asarray([kk >> 32 for kk in key], np.uint32)
+                                   .view(np.float32))
+            limit = torch.fmin(best, r[7])
+            worst = torch.where(limit.isnan(), -torch.inf, limit).max()
+            if not bool(entries[tile, k] <= worst):
+                break
+            s = int(lists[tile, k])
+            dead = r[6] <= t_min
+            asks = oi.refine_children(bounds[s:s + 1], r, best)[:, 0] & ~dead[:, None]
+            for j in range(oi.SUPER):
+                c = s * oi.SUPER + j
+                for q in asks[:, j].nonzero()[:, 0].tolist():
+                    cols = tuple(r[a, q].reshape(1, 1) for a in range(6))
+                    t, ok = oi._plane_terms(cols, tuple(comp[m, c][None] for m in range(12)))
+                    t, ok = t[0], ok[0]
+                    hit = ok & (t > t_min) & (t < r[6, q])
+                    bits = t.numpy().view(np.uint32).astype(np.int64)
+                    for w in range(oi.TILE // 32):
+                        h = hit[w * 32:(w + 1) * 32].numpy()
+                        if not h.any():
+                            continue
+                        b = bits[w * 32:(w + 1) * 32]
+                        least = int(b[h].min())
+                        first = int(np.flatnonzero(h & (b == least))[0]) + w * 32
+                        key[q] = min(key[q], (least << 32) | (c * oi.CLUSTER_SIZE + first))
+        hi = np.asarray([kk >> 32 for kk in key], np.uint32)
+        lo = np.asarray([kk & 0xFFFFFFFF for kk in key], np.uint32)
+        t_out[tile * oi.TILE:(tile + 1) * oi.TILE] = torch.as_tensor(hi.view(np.float32))
+        i_out[tile * oi.TILE:(tile + 1) * oi.TILE] = torch.as_tensor(lo.view(np.int32))
+    return t_out, i_out
+
+
+@pytest.mark.parametrize("name", CLOSEST_CASES)
+def test_hand_built_closest_inputs_ask_as_designed(name, monkeypatch):
+    """On the CPU: the hand-built inputs of D ask for the children they are
+    built to ask for (`refine_children` at tmax), and the plain version and
+    a step-by-step model of the pair-parallel walk give the (t, idx) they are
+    built to give, bit for bit."""
+    walk, _, t_want, i_want = closest_case_walks(name, "cpu", monkeypatch)
+    tri, bounds, lists, counts, entries, rays = walk
+    asks = oi.refine_children(bounds, rays, rays[6]).reshape(rays.shape[1], -1)
+    n = asks[:oi.TILE].sum(dim=1)
+    if name in ("fan_out", "dead_tile"):
+        assert (n == 1).all() and torch.equal(asks[:oi.TILE].float().argmax(dim=1),
+                                              torch.arange(oi.TILE))
+    elif name == "nan_ray":
+        keep = torch.ones(oi.TILE, dtype=torch.bool)
+        keep[5:7] = False
+        assert n[5] == 0 and n[6] == 0 and (n[keep] == 1).all()
+    elif name == "contention":
+        assert (n == 1).all() and asks[:, 0].all()
+    elif name == "ties":
+        assert asks[:64, [2, 9]].all() and (n[:64] == 2).all()
+        assert asks[64:, [5, 20, 31]].all() and (n[64:] == 3).all()
+        assert torch.equal(lists[0, :2], torch.tensor([1, 0], dtype=torch.int32))
+    elif name == "stacked":
+        assert (n == 16).all()
+    else:
+        assert (n == 1).all() and asks[:, 0].all()
+    if name == "dead_tile":
+        assert int(counts[1]) == bounds.shape[0] and (rays[6, oi.TILE:] == 0).all()
+    t, i = oi.closest_super_reference(*walk, T_MIN)
+    assert torch.equal(t, t_want) and torch.equal(i, i_want)
+    tm, im = pair_walk_model(walk, T_MIN)
+    assert torch.equal(tm, t_want) and torch.equal(im, i_want)
+
+
+def test_pair_walk_model_matches_plain_version(monkeypatch):
+    """The step-by-step model of D's walk equals `closest_super_reference` bit
+    for bit on random rays against the displaced sphere (16 superclusters),
+    10% of them dead."""
+    big = compile_scene(bumpy_sphere(), device="cpu").scene
+    o, d, t_max = rays(256, BUMPY[1], seed=4, device="cpu", aimed=True)
+    walk, *_ = oi._prep(big, o, d, T_MIN, t_max, anyhit=False)
+    assert oi._is_super(walk)
+    t, i = oi.closest_super_reference(*walk, T_MIN)
+    assert (i >= 0).sum() > 100
+    tm, im = pair_walk_model(walk, T_MIN)
+    assert torch.equal(tm, t) and torch.equal(im, i)
+
+
+def test_two_level_closest_kernels_refuse_negative_t_min(monkeypatch):
+    """D and H order hits by the bits of t > t_min, so they take t_min >= 0
+    and raise otherwise, before any launch."""
+    walk, fwalk, _, _ = closest_case_walks("fan_out", "cpu", monkeypatch)
+    cuda.reset_launches()
+    with pytest.raises(ValueError, match="t_min >= 0"):
+        oi.closest_super_kernel(*walk, -1e-3)
+    with pytest.raises(ValueError, match="t_min >= 0"):
+        oi.fused_closest_super_kernel(*fwalk, float("nan"))
+    assert cuda.LAUNCHES["closest_super"] == cuda.LAUNCHES["fused_closest_super"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CLOSEST_CASES)
+def test_closest_super_kernel_on_hand_built_inputs(card, monkeypatch, name):
+    """D bit-equal to its plain version, and H bit-equal to D, on the
+    hand-built inputs: 128 rays that each ask for another child, every lane
+    of the block hitting every ray of one child, equal t in two children and
+    in two superclusters, the nearest child last of 16, a hit at exactly
+    tmax, a NaN ray, a dead tile that lists every supercluster."""
+    walk, fwalk, t_want, i_want = closest_case_walks(name, card, monkeypatch)
+    t, i = oi.closest_super_kernel(*walk, T_MIN)
+    torch.cuda.synchronize()
+    tp, ip = oi.closest_super_reference(*walk, T_MIN)
+    assert torch.equal(t, tp) and torch.equal(i, ip)
+    assert torch.equal(t.cpu(), t_want) and torch.equal(i.cpu(), i_want)
+    tf, i_f = oi.fused_closest_super_kernel(*fwalk, T_MIN)
+    assert torch.equal(tf, t) and torch.equal(i_f, i)
 
 
 @pytest.mark.cuda
