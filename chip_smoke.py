@@ -34,13 +34,16 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    (idx = arange(B) over a (B, 36) table, B a multiple of 1024: the contract
    of the Pallas unpack kernels), bit-equal to the transpose, and at a
    batch that is not a multiple of 4. The scatter-add
-   (the backward of the gathers) against a float64 sum on the card, within
-   1e-5 * sum |terms| + 1e-6 per entry (float32 sums in another order), and
-   against its plain version, on the primary-hit rows of the mesh (P =
-   65,544) and of Cornell (P = 136) at B = 524,288, on one row for every
-   ray, on a sliced non-aligned B and a compacted size with ~10% dead lanes
-   of zero cotangent, and with 16 and 3 columns; two launches on the same
-   inputs must be bit-equal. The fused-cull searches (fused_closest,
+   (the backward of the gathers) `torch.equal` to
+   `scatter_rows_ordered_reference` (its own sum order), and it and
+   `index_add_` against a float64 sum on the card, within 1e-5 * sum |terms|
+   + 1e-6 per entry, on the primary-hit rows of the mesh (P = 65,544) and of
+   Cornell (P = 136) at B = 524,288, on one row for every ray, on a sliced
+   non-aligned B and a compacted size with ~10% dead lanes of zero
+   cotangent, on the light rows of 8 and of 2 lights (16 columns, rows) and
+   the vertex gather (3 columns); two launches on the same inputs must be
+   bit-equal; on each input its time and its parts (sort, searchsorted,
+   pass 1, pass 2) each timed alone. The fused-cull searches (fused_closest,
    fused_anyhit on Cornell and the soup; fused_closest_super,
    fused_anyhit_super on the mesh) on the rays of every walk above: bit-equal
    to their plain versions and to the list kernels fed by the PyTorch cull,
@@ -123,9 +126,11 @@ device. Imports no JAX.
     python3 chip_smoke.py --walks LABEL OUT_DIR
 
 times only the gather and the two-level walks (D beside H, E beside I) on
-the mesh's queries of phase 2 (`time_walks`), with D's fan-out, one JSON line
-tagged LABEL, and saves D's and E's outputs in OUT_DIR or compares them with
-a run's saved there (a difference fails the run). To compare two checkouts
+the mesh's queries of phase 2 (`time_walks`), with D's fan-out, and the
+scatter-add (J) on the mesh's and Cornell's primary-hit rows, one row and
+the light rows of 8 and 2 lights, with its parts; one JSON line tagged LABEL. It
+saves D's and E's outputs and hashes of C's and J's in OUT_DIR or compares
+them with a run's saved there (a difference fails the run). To compare two checkouts
 on one card, copy this script into the other one's root and run the two in
 turns (parent, change, change, parent) with the same OUT_DIR.
 
@@ -728,9 +733,11 @@ def scatter_bound(cols, B, P):
 
 
 def compare_scatter(torch, idx, P, cols, label, gen, dead=0.0, rows_layout=False):
-    """The scatter-add kernel on one input against a float64 sum on the card
-    and against its plain version; two launches must be bit-equal. Returns
-    (max |kernel - plain|, ct, kernel output)."""
+    """The scatter-add kernel on one input: `torch.equal` to
+    `scatter_rows_ordered_reference` (its own sum order), it and its plain
+    version (`index_add_`) each against a float64 sum on the card; two
+    launches must be bit-equal. Returns (max |kernel - plain|, ct, kernel
+    output)."""
     from mafrixraytracing_torch.ops import unpack as ou
 
     B = idx.shape[0]
@@ -743,6 +750,7 @@ def compare_scatter(torch, idx, P, cols, label, gen, dead=0.0, rows_layout=False
     out = ou.scatter_kernel(ct, idx, P)
     torch.cuda.synchronize()
     again = ou.scatter_kernel(ct, idx, P)
+    ordered = torch.equal(out, ou.scatter_rows_ordered_reference(ct, idx, P))
     plain = ou.scatter_rows_reference(ct, idx, P)
     oracle = torch.zeros((P, cols), dtype=torch.float64, device=idx.device)
     oracle.index_add_(0, idx, ct.t().double())
@@ -752,58 +760,96 @@ def compare_scatter(torch, idx, P, cols, label, gen, dead=0.0, rows_layout=False
     err_p = (plain.double() - oracle).abs()
     diff = float((out - plain).abs().max())
     print(f"  scatter {label}: B={B} P={P} K={cols} rows hit={int((mass[:, 0] > 0).sum())} "
+          f"equal to the ordered reference={ordered} "
           f"max|kernel-f64|={float(err_o.max()):.3g} max|plain-f64|={float(err_p.max()):.3g} "
           f"max|kernel-plain|={diff:.3g} bit-equal twice={bool(torch.equal(out, again))}")
+    check(ordered, f"scatter kernel differs from scatter_rows_ordered_reference on {label}")
     check(bool((err_o <= tol).all()), f"scatter kernel is outside tolerance on {label}")
     check(bool((err_p <= tol).all()), f"scatter plain version is outside tolerance on {label}")
     check(torch.equal(out, again), f"scatter kernel is not reproducible on {label}")
     return diff, ct, out
 
 
+def scatter_parts(torch, ct, idx, P, label):
+    """Kernel J's time through its wrapper and its parts, each timed alone
+    (CUDA events, `time_ms`): the stable sort, `searchsorted`, pass 1 and
+    pass 2 (on what pass 1 wrote); "rest" is what the wrapper's other
+    launches (`zeros`, `arange`, `clamp`, the cast) add. A part shorter than
+    its launch from Python measures the host's launch rate there, so the
+    same parts also come from the profiler's device time (`profiled_parts`,
+    "device"). With its bound."""
+    from mafrixraytracing_torch.ops import unpack as ou
+
+    K, B = ct.shape
+    values, perm, starts = ou.scatter_order(idx, P)
+    out = torch.zeros((P, K), device=ct.device)
+    part, span = ou.scatter_scratch(ct)
+    keys = idx.clamp(0, P - 1).to(torch.int32)
+    rows = torch.arange(P + 1, dtype=torch.int32, device=ct.device)
+    ou.scatter_passes(ct, values, perm, starts, P, out, part, span, 1)
+    r = {"J": time_ms(lambda: ou.scatter_kernel(ct, idx, P)),
+         "sort": time_ms(lambda: torch.sort(keys, stable=True)),
+         "searchsorted": time_ms(lambda: torch.searchsorted(values, rows)),
+         "pass 1": time_ms(lambda: ou.scatter_passes(ct, values, perm, starts, P, out,
+                                                     part, span, 1)),
+         "pass 2": time_ms(lambda: ou.scatter_passes(ct, values, perm, starts, P, out,
+                                                     part, span, 2))}
+    r["rest"] = r["J"] - r["sort"] - r["searchsorted"] - r["pass 1"] - r["pass 2"]
+    r["device"] = profiled_parts(torch, lambda: ou.scatter_kernel(ct, idx, P))
+    r["device_ms"] = sum(r["device"].values())
+    r.update(scatter_bound(K, B, P))
+    print(f"  J {label} (B = {B:,}, P = {P:,}, K = {K}): {r['J']:.4f} ms = sort "
+          f"{r['sort']:.4f} + searchsorted {r['searchsorted']:.4f} + pass 1 "
+          f"{r['pass 1']:.4f} + pass 2 {r['pass 2']:.4f} + rest {r['rest']:.4f}; "
+          f"bound {r['bound_ms']:.5f} ms ({r['bound_ms'] / r['J']:.3f} of it); on the "
+          f"device {r['device_ms']:.4f} ms = "
+          + " + ".join(f"{k} {v:.4f}" for k, v in sorted(r["device"].items())))
+    return r
+
+
 def phase_scatter(torch, dev, records, mesh_idx, mesh_P, cornell_idx, cornell_P):
-    """Kernel J on the main path's index sets and on synthetic ones."""
+    """Kernel J on the main path's index sets and on synthetic ones, each
+    input compared and timed with its parts."""
     from mafrixraytracing_torch.ops import unpack as ou
 
     gen = torch.Generator(device=dev).manual_seed(31)
     B = mesh_idx.shape[0]
-    errs = []
-    err, ct, _ = compare_scatter(torch, mesh_idx, mesh_P, 36, "mesh primary hits", gen)
-    errs.append(err)
-    ms = time_ms(lambda: ou.scatter_kernel(ct, mesh_idx, mesh_P))
+    one_row = torch.full((B,), 77, dtype=torch.int64, device=dev)
+    # (label, idx, P, K, ~dead share, rows layout): the mesh's and Cornell's
+    # primary-hit rows, one row for every ray, a non-aligned slice and a
+    # compacted size with ~10% dead lanes of zero cotangent, the light rows of
+    # 8 and of 2 lights (16 columns, rows), the vertex gather (3 columns)
+    inputs = [("mesh primary hits", mesh_idx, mesh_P, 36, 0.0, False),
+              ("cornell primary hits", cornell_idx, cornell_P, 36, 0.0, False),
+              ("one row", one_row, cornell_P, 36, 0.0, False),
+              ("non-aligned slice", mesh_idx[:500_001].contiguous(), mesh_P, 36, 0.1, False),
+              ("compacted size", mesh_idx[:1024 * 137].contiguous(), mesh_P, 36, 0.1, False),
+              ("light rows", torch.randint(0, 8, (B,), generator=gen, device=dev),
+               8, 16, 0.0, True),
+              ("light rows of one quad", torch.randint(0, 2, (B,), generator=gen, device=dev),
+               2, 16, 0.0, True),
+              ("vertex gather", torch.randint(0, 18_768, (3 * 65_536,), generator=gen,
+                                              device=dev), 18_768, 3, 0.0, True)]
+    errs, parts, cts = [], {}, {}
+    for label, idx, P, K, dead, rows_layout in inputs:
+        err, cts[label], _ = compare_scatter(torch, idx, P, K, label, gen, dead=dead,
+                                             rows_layout=rows_layout)
+        errs.append(err)
+        parts[label] = scatter_parts(torch, cts[label], idx, P, label)
+    ct, ct_c = cts["mesh primary hits"], cts["cornell primary hits"]
     ms_p = time_ms(lambda: ou.scatter_rows_reference(ct, mesh_idx, mesh_P))
     ms_l = time_ms(lambda: torch.zeros((mesh_P, 36), device=dev)
                    .index_add_(0, mesh_idx, ct.t()))
-    ms_sort = time_ms(lambda: torch.sort(mesh_idx.to(torch.int32), stable=True))
-    bound = scatter_bound(36, B, mesh_P)
-    err, ct_c, _ = compare_scatter(torch, cornell_idx, cornell_P, 36,
-                                   "cornell primary hits", gen)
-    errs.append(err)
-    ms_c = time_ms(lambda: ou.scatter_kernel(ct_c, cornell_idx, cornell_P))
     ms_cl = time_ms(lambda: torch.zeros((cornell_P, 36), device=dev)
                     .index_add_(0, cornell_idx, ct_c.t()))
-    one_row = torch.full((B,), 77, dtype=torch.int64, device=dev)
-    err, ct_1, _ = compare_scatter(torch, one_row, cornell_P, 36, "one row", gen)
-    errs.append(err)
-    ms_1 = time_ms(lambda: ou.scatter_kernel(ct_1, one_row, cornell_P))
-    # a non-aligned slice and a compacted size, ~10% dead lanes of zero cotangent
-    for n, label in ((500_001, "non-aligned slice"), (1024 * 137, "compacted size")):
-        errs.append(compare_scatter(torch, mesh_idx[:n].contiguous(), mesh_P, 36,
-                                    label, gen, dead=0.1)[0])
-    # the light rows (16 columns, 8 rows) and the vertex gather (3 columns)
-    light_idx = torch.randint(0, 8, (B,), generator=gen, device=dev)
-    errs.append(compare_scatter(torch, light_idx, 8, 16, "light rows", gen,
-                                rows_layout=True)[0])
-    vert_idx = torch.randint(0, 18_768, (3 * 65_536,), generator=gen, device=dev)
-    errs.append(compare_scatter(torch, vert_idx, 18_768, 3, "vertex gather", gen,
-                                rows_layout=True)[0])
-    records["scatter"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=ms_p,
-                              library_ms=ms_l, **bound)
-    print(f"  scatter: kernel {ms:.4f} ms (of it the sort alone {ms_sort:.4f} ms), "
-          f"plain {ms_p:.4f} ms, library {ms_l:.4f} ms, bound "
-          f"{bound['bound_ms']:.5f} ms by bytes (mesh, B = {B:,}, P = {mesh_P:,}); "
-          f"Cornell (P = {cornell_P}): kernel {ms_c:.4f} ms, library {ms_cl:.4f} ms, "
-          f"bound {scatter_bound(36, B, cornell_P)['bound_ms']:.5f} ms; one row: "
-          f"kernel {ms_1:.4f} ms")
+    mesh = parts["mesh primary hits"]
+    records["scatter"] = dict(max_abs_err=max(errs), ms=mesh["J"], plain_ms=ms_p,
+                              library_ms=ms_l, bound_ms=mesh["bound_ms"],
+                              bound_by=mesh["bound_by"], device_ms=mesh["device_ms"])
+    print(f"  scatter: kernel {mesh['J']:.4f} ms, plain {ms_p:.4f} ms, library "
+          f"{ms_l:.4f} ms, bound {mesh['bound_ms']:.5f} ms by bytes (mesh, B = {B:,}, "
+          f"P = {mesh_P:,}); Cornell (P = {cornell_P}): kernel "
+          f"{parts['cornell primary hits']['J']:.4f} ms, library {ms_cl:.4f} ms")
 
 
 def compare_pure_unpack(torch, dev):
@@ -1044,8 +1090,10 @@ def phase_kernels_mesh(torch, dev, records, cornell_idx, cornell_P):
 def time_walks(torch, dev, label, out_dir):
     """`--walks`: the gather (C) and the two-level walks (D and H, E and I,
     H and I with their cull) timed on the mesh's queries of phase 2, with
-    D's fan-out on its two inputs, one JSON line. D's and E's outputs and a
-    hash of the gather's are saved in `out_dir`, or, when a run of another
+    D's fan-out on its two inputs, and the scatter-add (J) on the mesh's and
+    Cornell's primary-hit rows, one row and the light rows, with its parts from
+    the profiler; one JSON line. D's and E's outputs and hashes of the
+    gather's and of J's are saved in `out_dir`, or, when a run of another
     checkout saved them there, compared with those: two checkouts timed in
     turns on one card must agree bit for bit. H must equal D and I equal E
     bit for bit."""
@@ -1092,6 +1140,12 @@ def time_walks(torch, dev, label, out_dir):
     idx = torch.arange(rows.shape[0], device=dev)
     rec["C pure unpack"] = time_ms(lambda: ou.unpack_kernel(rows, idx))
     rec["C pure unpack, library"] = time_ms(lambda: rows.t().contiguous())
+    for name, ct, jidx, P in scatter_walk_inputs(torch, dev, table.shape[0], gidx):
+        out = ou.scatter_kernel(ct, jidx, P)
+        outputs[f"J {name}"] = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+        rec[f"J {name}"] = time_ms(lambda: ou.scatter_kernel(ct, jidx, P))  # noqa: B023
+        rec[f"J parts, {name}"] = profiled_parts(
+            torch, lambda: ou.scatter_kernel(ct, jidx, P))  # noqa: B023
     path = os.path.join(out_dir, "walks_outputs.pt")
     if os.path.exists(path):
         saved = torch.load(path)
@@ -1105,6 +1159,61 @@ def time_walks(torch, dev, label, out_dir):
           "a fused walk differs from its list walk")
     check(all(rec.get("outputs equal to the saved run's", {}).values()),
           "the walks' outputs differ from the saved run's")
+
+
+def scatter_walk_inputs(torch, dev, mesh_P, mesh_idx):
+    """J's inputs of `--walks`, from seeds: (name, ct, idx, P) for the
+    mesh's primary-hit rows, Cornell's (its phase-2 rays), one row for every
+    ray and the light rows of 8 and of 2 lights (16 columns, rows layout)."""
+    from mafrixraytracing_torch.geometry.intersect import packed_attr_table
+    from mafrixraytracing_torch.ops import intersect as oi
+    from mafrixraytracing_torch.scene.builtin import cornell_box
+    from mafrixraytracing_torch.scene.compiler import compile_scene
+
+    cs = compile_scene(cornell_box(256, 256), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B = WAVEFRONT
+    u = torch.rand(B, generator=gen, device=dev)
+    v = torch.rand(B, generator=gen, device=dev)
+    o, d = cs.camera.get_rays(u, v)
+    _, i_hit = oi.find_closest_soa(cs.scene, o, d, 1e-3, 1e8)
+    cornell_P = packed_attr_table(cs.scene).shape[0]
+    gen = torch.Generator(device=dev).manual_seed(41)
+    cols = lambda K: torch.randn((K, B), generator=gen, device=dev)  # noqa: E731
+    rows = lambda K: torch.randn((B, K), generator=gen, device=dev).t()  # noqa: E731
+    return [("mesh", cols(36), mesh_idx, mesh_P),
+            ("cornell", cols(36), i_hit.clamp(0, cornell_P - 1), cornell_P),
+            ("one row", cols(36), torch.full((B,), 77, device=dev), cornell_P),
+            ("light rows", rows(16), torch.randint(0, 8, (B,), generator=gen, device=dev), 8),
+            ("light rows of one quad", rows(16),
+             torch.randint(0, 2, (B,), generator=gen, device=dev), 2)]
+
+
+def profiled_parts(torch, fn, reps: int = 10) -> dict:
+    """Device ms a call of fn() spends in each part of kernel J, from
+    torch.profiler's kernel records over `reps` calls: the sort, searchsorted,
+    pass 1 (`scatter_chunk_kernel`), pass 2 (`scatter_combine_kernel`) and
+    the other launches. Reads kernel names only, so it breaks down any
+    checkout's J."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts: dict[str, float] = {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        part = ("pass 1" if "scatter_chunk" in name else
+                "pass 2" if "scatter_combine" in name else
+                "searchsorted" if "searchsorted" in name else
+                "sort" if "sort" in name else "other")
+        parts[part] = parts.get(part, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return parts
 
 
 def same_outputs(a, b) -> bool:

@@ -17,19 +17,30 @@
 // So there is no atomic on the output. The wrapper sorts the indices (stable,
 // so the order within a row is the rays' own) and hands over, for every table
 // row p, its segment [starts[p], starts[p + 1]) of sorted positions. The sum
-// of a segment is taken in an order the inputs alone fix:
+// of a segment is taken in an order the inputs alone fix, written out as a
+// plain version in ops/unpack.py::scatter_rows_ordered_reference:
 //
 //   pass 1  one block per CHUNK = 256 consecutive sorted positions. A thread
-//           owns a position and keeps its K values in registers; a segmented
-//           inclusive scan over the chunk (8 doubling steps through shared
-//           memory, never across a segment's start) leaves the sum of each
-//           run at its last position. A run that is a whole segment is
-//           written to out; a run cut by the chunk's edge goes to part[chunk]
-//           (slot 0: the segment began in an earlier chunk; slot 1: it began
-//           here and goes on).
-//   pass 2  one warp per table row whose segment spans several chunks: lane l
-//           adds the partials of chunks c0 + l, c0 + l + 32, ... in ascending
-//           order, then a fixed shuffle tree adds the 32 lanes.
+//           owns a position and keeps its K values in registers (read as
+//           float4 where the values of a ray are 16-byte aligned rows). A
+//           segmented inclusive scan over the chunk, 8 doubling steps that
+//           never cross a segment's start, leaves the sum of each run at its
+//           last position. Steps d = 1..16 run in registers with shuffles:
+//           lane l < d needs position j - d of the previous warp, so each
+//           warp also carries that warp's values (read once from shared
+//           memory) through steps 1..8, which is all that lane l < d reads.
+//           Steps 32, 64, 128 go through shared memory: 7 barriers in all.
+//           A run that is a whole segment is written to out; a run cut by
+//           the chunk's edge goes to part (slot 0: the segment began in an
+//           earlier chunk; slot 1: it began here and goes on). The chunk's
+//           last thread writes span[chunk]: the row whose segment begins in
+//           the chunk and goes on, or -1.
+//   pass 2  one warp per (spanning row, column), taken by a grid-stride loop
+//           over (chunk, column) that skips chunks whose span is -1: lane l
+//           adds the partials of chunks c0 + l, c0 + l + 32, ... in
+//           ascending order from 0.0 (8 loads issued before their adds),
+//           then a fixed shuffle tree (16, 8, 4, 2, 1) adds the 32 lanes.
+//           part is (2, K, chunks), so a warp's loads are coalesced.
 //
 // Rows that nobody gathered keep the zero the wrapper allocated.
 //
@@ -44,72 +55,142 @@
 namespace {
 
 constexpr int CHUNK = 256;
+constexpr int COMBINE_THREADS = 256;
+constexpr int COMBINE_UNROLL = 8;
+constexpr unsigned FULL = 0xffffffffu;
 
-template <int K>
+template <int K, bool VEC>
+__device__ __forceinline__ void load_values(const float* __restrict__ ct, int64_t stride_k,
+                                            int64_t stride_i, int64_t src, float (&acc)[K]) {
+  if constexpr (VEC) {
+    const float4* row = reinterpret_cast<const float4*>(ct + src * stride_i);
+#pragma unroll
+    for (int q = 0; q < K / 4; ++q) {
+      const float4 v = row[q];
+      acc[4 * q] = v.x;
+      acc[4 * q + 1] = v.y;
+      acc[4 * q + 2] = v.z;
+      acc[4 * q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] = ct[k * stride_k + src * stride_i];
+  }
+}
+
+template <int K, bool VEC>
 __global__ void __launch_bounds__(CHUNK) scatter_chunk_kernel(
     const float* __restrict__ ct, int64_t stride_k, int64_t stride_i,
     const int32_t* __restrict__ sorted_idx, const int64_t* __restrict__ perm,
-    const int64_t* __restrict__ starts, int B, float* __restrict__ out,
-    float* __restrict__ part) {
+    const int64_t* __restrict__ starts, int B, int chunks, float* __restrict__ out,
+    float* __restrict__ part, int32_t* __restrict__ span) {
   __shared__ float vals[K * CHUNK];
+  __shared__ int run_starts[CHUNK];
   const int j = threadIdx.x;
+  const int lane = j & 31;
   const int64_t base = (int64_t)blockIdx.x * CHUNK;
   const int64_t pos = base + j;
   const bool live = pos < B;
-  int64_t p = 0;
-  int run_start = j;
+  int64_t p = 0, seg_start = 0;
+  int run_start = j;  // a dead position never adds
   float acc[K];
   if (live) {
     p = sorted_idx[pos];
-    const int64_t src = perm[pos];
-#pragma unroll
-    for (int k = 0; k < K; ++k) acc[k] = ct[k * stride_k + src * stride_i];
-    const int64_t s = starts[p] - base;
+    load_values<K, VEC>(ct, stride_k, stride_i, perm[pos], acc);
+    seg_start = starts[p];
+    const int64_t s = seg_start - base;
     run_start = s > 0 ? (int)s : 0;
   } else {
 #pragma unroll
     for (int k = 0; k < K; ++k) acc[k] = 0.0f;
   }
+#pragma unroll
+  for (int k = 0; k < K; ++k) vals[k * CHUNK + j] = acc[k];
+  run_starts[j] = run_start;
+  __syncthreads();
   // segmented inclusive scan: after the step with distance d, acc covers the
-  // positions [max(run_start, j - 2 d + 1), j]
-  for (int d = 1; d < CHUNK; d <<= 1) {
+  // positions [max(run_start, j - 2 d + 1), j]. Steps d < 32 in registers;
+  // prev is the same lane's position in the previous warp (jp), advanced
+  // through steps 1..8 with its own run start: at step d lane l < d reads
+  // lane l - d + 32 of it, whose window never reaches further back than that
+  // warp.
+  const int jp = j - 32;
+  const int prev_start = j >= 32 ? run_starts[jp] : 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float own = acc[k];
+    float prev = j >= 32 ? vals[k * CHUNK + jp] : 0.0f;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      // lane s offers own to lane s + d and prev to lane s + d - 32
+      const float from = __shfl_sync(FULL, lane < 32 - d ? own : prev, (lane - d) & 31);
+      if (d < 16) {
+        const float prev_from = __shfl_up_sync(FULL, prev, d);
+        if (lane >= d && jp - d >= prev_start) prev += prev_from;
+      }
+      if (j - d >= run_start) own += from;
+    }
+    acc[k] = own;
+  }
+  __syncthreads();  // every warp has read the values of the previous one
+#pragma unroll
+  for (int d = 32; d < CHUNK; d <<= 1) {
 #pragma unroll
     for (int k = 0; k < K; ++k) vals[k * CHUNK + j] = acc[k];
     __syncthreads();
-    if (live && j - d >= run_start) {
+    if (j - d >= run_start) {
 #pragma unroll
       for (int k = 0; k < K; ++k) acc[k] += vals[k * CHUNK + j - d];
     }
-    __syncthreads();
+    if (d < CHUNK / 2) __syncthreads();
   }
   if (!live) return;
   const int64_t seg_end = starts[p + 1];
   const int64_t chunk_end = base + CHUNK < (int64_t)B ? base + CHUNK : (int64_t)B;
-  if (pos + 1 != seg_end && pos + 1 != chunk_end) return;  // not a run's last
-  const bool head = starts[p] < base;     // the segment began in an earlier chunk
+  const bool head = seg_start < base;     // the segment began in an earlier chunk
   const bool cut = seg_end > chunk_end;   // and/or goes on in a later one
-  float* dst = (!head && !cut) ? out + p * K
-                               : part + ((int64_t)blockIdx.x * 2 + (head ? 0 : 1)) * K;
+  if (pos + 1 == chunk_end) span[blockIdx.x] = (!head && cut) ? (int32_t)p : -1;
+  if (pos + 1 != seg_end && pos + 1 != chunk_end) return;  // not a run's last
+  if (!head && !cut) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) dst[k] = acc[k];
+    for (int k = 0; k < K; ++k) out[p * K + k] = acc[k];
+  } else {
+    float* dst = part + (int64_t)(head ? 0 : K) * chunks + blockIdx.x;
+#pragma unroll
+    for (int k = 0; k < K; ++k) dst[(int64_t)k * chunks] = acc[k];
+  }
 }
 
-// One warp per table row; only rows whose segment spans several chunks work.
-__global__ void __launch_bounds__(128) scatter_combine_kernel(
-    const int64_t* __restrict__ starts, const float* __restrict__ part, int P, int K,
-    float* __restrict__ out) {
+// One warp per (chunk c0, column k) item of a grid-stride loop; only items
+// whose chunk begins a spanning segment work.
+__global__ void __launch_bounds__(COMBINE_THREADS) scatter_combine_kernel(
+    const int32_t* __restrict__ span, const int64_t* __restrict__ starts,
+    const float* __restrict__ part, int chunks, int K, float* __restrict__ out) {
   const int lane = threadIdx.x & 31;
-  const int64_t p = (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (p >= P) return;
-  const int64_t s = starts[p], e = starts[p + 1];
-  if (e <= s) return;
-  const int64_t c0 = s / CHUNK, c1 = (e - 1) / CHUNK;
-  if (c0 == c1) return;  // pass 1 wrote the whole segment
-  for (int k = 0; k < K; ++k) {
+  const int64_t warps = (int64_t)gridDim.x * (COMBINE_THREADS / 32);
+  const int64_t items = (int64_t)chunks * K;
+  for (int64_t item = (int64_t)blockIdx.x * (COMBINE_THREADS / 32) + (threadIdx.x >> 5);
+       item < items; item += warps) {
+    const int64_t c0 = item / K;
+    const int k = (int)(item - c0 * K);
+    const int64_t p = span[c0];
+    if (p < 0) continue;
+    const int64_t c1 = (starts[p + 1] - 1) / CHUNK;
+    const float* later = part + (int64_t)k * chunks;          // slot 0
+    const float* first = part + (int64_t)(K + k) * chunks;    // slot 1
     float acc = 0.0f;
-    for (int64_t c = c0 + lane; c <= c1; c += 32)
-      acc += part[(c * 2 + (c == c0 ? 1 : 0)) * K + k];
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+    for (int64_t c = c0 + lane; c <= c1; c += 32 * COMBINE_UNROLL) {
+      float v[COMBINE_UNROLL];
+#pragma unroll
+      for (int u = 0; u < COMBINE_UNROLL; ++u) {
+        const int64_t cc = c + 32 * u;
+        v[u] = cc <= c1 ? (cc == c0 ? first[cc] : later[cc]) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < COMBINE_UNROLL; ++u)
+        if (c + 32 * u <= c1) acc += v[u];
+    }
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(FULL, acc, off);
     if (lane == 0) out[p * K + k] = acc;
   }
 }
@@ -117,9 +198,16 @@ __global__ void __launch_bounds__(128) scatter_combine_kernel(
 template <int K>
 void launch_chunks(const float* ct, int64_t stride_k, int64_t stride_i,
                    const int32_t* sorted_idx, const int64_t* perm, const int64_t* starts, int B,
-                   float* out, float* part, cudaStream_t stream) {
-  scatter_chunk_kernel<K><<<(B + CHUNK - 1) / CHUNK, CHUNK, 0, stream>>>(
-      ct, stride_k, stride_i, sorted_idx, perm, starts, B, out, part);
+                   float* out, float* part, int32_t* span, cudaStream_t stream) {
+  const int chunks = (B + CHUNK - 1) / CHUNK;
+  const bool vec = K % 4 == 0 && stride_k == 1 && stride_i % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(ct) & 15) == 0;
+  if (vec)
+    scatter_chunk_kernel<K, K % 4 == 0><<<chunks, CHUNK, 0, stream>>>(
+        ct, stride_k, stride_i, sorted_idx, perm, starts, B, chunks, out, part, span);
+  else
+    scatter_chunk_kernel<K, false><<<chunks, CHUNK, 0, stream>>>(
+        ct, stride_k, stride_i, sorted_idx, perm, starts, B, chunks, out, part, span);
 }
 
 }  // namespace
@@ -127,26 +215,31 @@ void launch_chunks(const float* ct, int64_t stride_k, int64_t stride_i,
 // C entry point, bound with ctypes. ct: K x B f32 values read at
 // ct[k * stride_k + i * stride_i]; sorted_idx (B,) i32 ascending in [0, P);
 // perm (B,) i64, the ray of each sorted position; starts (P + 1,) i64;
-// out (P, K) f32, zero on entry; part (ceil(B / 256), 2, K) f32 scratch.
-// K must be 1, 3, 16 or 36 (returns cudaErrorInvalidValue otherwise).
-// Returns cudaGetLastError().
+// out (P, K) f32, zero on entry; part (2, K, ceil(B / 256)) f32 and span
+// (ceil(B / 256),) i32 scratch. passes: 1 runs pass 1, 2 pass 2 (on what
+// pass 1 wrote), 3 both. K must be 1, 3, 16 or 36 (returns
+// cudaErrorInvalidValue otherwise). Returns cudaGetLastError().
 extern "C" int mfx_scatter(const float* ct, int64_t stride_k, int64_t stride_i,
                            const int32_t* sorted_idx, const int64_t* perm,
                            const int64_t* starts, int B, int P, int K, float* out, float* part,
-                           cudaStream_t stream) {
+                           int32_t* span, int passes, cudaStream_t stream) {
+  if (K != 1 && K != 3 && K != 16 && K != 36) return (int)cudaErrorInvalidValue;
   if (B <= 0 || P <= 0) return (int)cudaGetLastError();
-  switch (K) {
-    case 1: launch_chunks<1>(ct, stride_k, stride_i, sorted_idx, perm, starts, B, out, part, stream); break;
-    case 3: launch_chunks<3>(ct, stride_k, stride_i, sorted_idx, perm, starts, B, out, part, stream); break;
-    case 16: launch_chunks<16>(ct, stride_k, stride_i, sorted_idx, perm, starts, B, out, part, stream); break;
-    case 36: launch_chunks<36>(ct, stride_k, stride_i, sorted_idx, perm, starts, B, out, part, stream); break;
-    default: return (int)cudaErrorInvalidValue;
+  if (passes & 1) {
+    switch (K) {
+      case 1: launch_chunks<1>(ct, stride_k, stride_i, sorted_idx, perm, starts, B, out, part, span, stream); break;
+      case 3: launch_chunks<3>(ct, stride_k, stride_i, sorted_idx, perm, starts, B, out, part, span, stream); break;
+      case 16: launch_chunks<16>(ct, stride_k, stride_i, sorted_idx, perm, starts, B, out, part, span, stream); break;
+      default: launch_chunks<36>(ct, stride_k, stride_i, sorted_idx, perm, starts, B, out, part, span, stream); break;
+    }
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
   }
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  if (B > CHUNK) {
-    const int warps = 4;
-    scatter_combine_kernel<<<(P + warps - 1) / warps, warps * 32, 0, stream>>>(starts, part, P, K, out);
+  const int chunks = (B + CHUNK - 1) / CHUNK;
+  if ((passes & 2) && chunks > 1) {
+    const int64_t blocks = ((int64_t)chunks * K + COMBINE_THREADS / 32 - 1) / (COMBINE_THREADS / 32);
+    scatter_combine_kernel<<<(int)(blocks < 2048 ? blocks : 2048), COMBINE_THREADS, 0, stream>>>(
+        span, starts, part, chunks, K, out);
   }
   return (int)cudaGetLastError();
 }

@@ -9,10 +9,12 @@ frame (no grad) and one forward + backward, and with `--fit` (or
 BENCH_FIT=1) one whole train step of `opt.inverse` at 8 spp as
 `bench.run_fit` times it. For each it prints the wall
 time, the device-busy time (the sum of kernel durations on the card), the
-idle share, the number of kernel launches, and the kernels with the most
-device time. With TRACE_DIR, it also writes Chrome traces there. `--fused`
-(or BENCH_FUSED=1) profiles the fused-cull searches (`ops.intersect.FUSED_CULL`),
-`--cull-kernel` (or BENCH_CULL_KERNEL=1) the list walks fed by the cull kernel
+idle share, the number of kernel launches, the kernels with the most
+device time, and the scatter-add's (J's) wrapper launches and the device
+time of its two passes (its sort is not told apart from the others'). With
+TRACE_DIR, it also writes Chrome traces there. `--fused` (or BENCH_FUSED=1)
+profiles the fused-cull searches (`ops.intersect.FUSED_CULL`), `--cull-kernel`
+(or BENCH_CULL_KERNEL=1) the list walks fed by the cull kernel
 (`ops.intersect.CULL_KERNEL`).
 """
 from __future__ import annotations
@@ -27,6 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 from mafrixraytracing_torch import bench
 from mafrixraytracing_torch.core import rng
 from mafrixraytracing_torch.integrator import path as P
+from mafrixraytracing_torch.ops import cuda
 from mafrixraytracing_torch.scene.builtin import cornell_box
 from mafrixraytracing_torch.scene.compiler import compile_scene
 
@@ -56,6 +59,11 @@ def _report(label: str, prof, wall_s: float, top: int = 15) -> None:
     for name, (us, n) in rows:
         print(f"  {us / 1e3:10.3f} ms {100 * us / max(busy_us, 1):5.1f}% "
               f"{n:7d}x  {name[:90]}")
+    j = [v for name, v in by_name.items()
+         if "scatter_chunk" in name or "scatter_combine" in name]
+    j_us, j_n = sum(us for us, _ in j), sum(n for _, n in j)
+    print(f"  J (scatter-add): {cuda.LAUNCHES['scatter']} wrapper launches, "
+          f"{j_n} pass kernels, {j_us / 1e3:.3f} ms device time in its passes")
 
 
 def profile_scene(spec=None, trace_dir=None, fit=False) -> None:
@@ -80,6 +88,7 @@ def profile_scene(spec=None, trace_dir=None, fit=False) -> None:
     if fit:
         runs.append(("train step", _train_step(cs, config, dev)))
     for label, fn in runs:
+        cuda.reset_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()

@@ -118,15 +118,17 @@ def test_scatter_card_test_keeps_its_cases():
     fn = tk.test_scatter_kernel_matches_plain_version
     marks = {m.name: m for m in fn.pytestmark if m.name != "parametrize"}
     sizes = [len(m.args[1]) for m in fn.pytestmark if m.name == "parametrize"]
-    assert "cuda" in marks and sizes == [5, 4]     # 20 cases
-    assert "assert_close" not in inspect.getsource(fn)
+    assert "cuda" in marks and sizes == [7, 4]     # 28 cases
+    src = inspect.getsource(fn)
+    assert "assert_close" not in src and "scatter_rows_ordered_reference" in src
 
 
 @pytest.mark.parametrize("cols", [1, 3, 16, 36])
-@pytest.mark.parametrize("name", ["few_rows", "many_rows", "one_row", "tiny", "runs"])
+@pytest.mark.parametrize("name", ["few_rows", "many_rows", "one_row", "tiny", "runs",
+                                  "one_row_wavefront", "light_rows"])
 def test_scatter_plain_version_within_float64_bound(name, cols):
     """The bound that the card test now holds the plain version to, on the
-    CPU's `index_add_` for the same 20 inputs."""
+    CPU's `index_add_` for the same 28 inputs."""
     ct, idx, P = tk.scatter_case(name, cols, "cpu")
     oracle, tol = tk.float64_sum(ct, idx, P)
     plain = ou.scatter_rows_reference(ct, idx, P)

@@ -25,9 +25,10 @@ H, I) bit for bit against their plain versions and against A, B, D, E fed by
 the PyTorch cull on the same rays; the cull kernel (K) bit for bit against
 `cull_reference`, and the list walks fed by it against the same walks fed by
 the PyTorch cull; the counting walk and the walk without early exit bit for
-bit against A and against their step-by-step plain versions; the scatter-add (J), and
-its plain version (`index_add_`'s float atomics), each within 1e-5 of the sum
-of |terms| of a float64 sum, J bit-equal across launches;
+bit against A and against their step-by-step plain versions; the scatter-add (J)
+bit for bit against `scatter_rows_ordered_reference` (its own sum order), and J
+and `index_add_` (float atomics) each within 1e-5 of the sum of |terms| of a
+float64 sum, J bit-equal across launches;
 a gradient evaluation of `opt.inverse` bit-equal when repeated; and a small render
 through the kernels against the same render on the CPU (image rtol 1e-3 /
 atol 1e-4 on 99.5% of pixels: the two devices' sin/cos/sqrt round
@@ -527,8 +528,9 @@ def scatter_case(name, cols, device):
     rs = np.random.default_rng(len(name) + cols)
     B, P = {"few_rows": (100_000, 17), "many_rows": (70_001, 65_544),
             "one_row": (50_000, 136), "tiny": (7, 5),
-            "runs": (40_960, 5_000)}[name]
-    if name == "one_row":
+            "runs": (40_960, 5_000), "one_row_wavefront": ((1 << 19) - 1, 136),
+            "light_rows": (1 << 19, 2)}[name]
+    if name in ("one_row", "one_row_wavefront"):
         idx = np.full(B, 77)
     elif name == "runs":   # sorted runs of 1..600, as primary hits give
         idx = np.repeat(np.arange(P), rs.integers(1, 600, P))[:B]
@@ -553,14 +555,16 @@ def float64_sum(ct, idx, P):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cols", [1, 3, 16, 36])
 @pytest.mark.parametrize("name", ["few_rows", "many_rows", "one_row", "tiny",
-                                  "runs"])
+                                  "runs", "one_row_wavefront", "light_rows"])
 def test_scatter_kernel_matches_plain_version(card, name, cols):
-    """Kernel J and its plain version each against a float64 sum (|error| <=
-    1e-5 * sum of |terms| + 1e-6 per entry: float32 sums in another order),
-    J on strided cotangents, and bit-equal across two launches."""
+    """Kernel J bit-equal to `scatter_rows_ordered_reference` (its own sum
+    order) in both layouts; J and `index_add_` each against a float64 sum
+    (|error| <= 1e-5 * sum of |terms| + 1e-6 per entry: float32 sums in
+    another order); J bit-equal across two launches."""
     ct, idx, P = scatter_case(name, cols, card)
     out = ou.scatter_kernel(ct, idx, P)
     torch.cuda.synchronize()
+    assert torch.equal(out, ou.scatter_rows_ordered_reference(ct, idx, P))
     oracle, tol = float64_sum(ct, idx, P)
     assert bool(((out.double() - oracle).abs() <= tol).all())
     # the plain version is `index_add_` with float atomics, whose order
@@ -571,6 +575,17 @@ def test_scatter_kernel_matches_plain_version(card, name, cols):
     assert torch.equal(out, ou.scatter_kernel(ct, idx, P))
     rows = ct.t().contiguous()           # the same values as (B, K) rows
     assert torch.equal(out, ou.scatter_kernel(rows.t(), idx, P))
+
+
+@pytest.mark.cuda
+def test_scatter_kernel_refuses_other_column_counts(card):
+    """J is built for `SCATTER_COLS`; another K raises before any launch."""
+    cuda.reset_launches()
+    idx = torch.zeros(300, dtype=torch.int64, device=card)
+    for cols in (2, 4, 37):
+        with pytest.raises(ValueError, match="built for"):
+            ou.scatter_kernel(torch.zeros((cols, 300), device=card), idx, 8)
+    assert cuda.LAUNCHES["scatter"] == 0
 
 
 UNPACK_B = [1, 3, 127, 128, 129, 4097, 524_288]

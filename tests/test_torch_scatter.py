@@ -9,8 +9,12 @@ its plain version, `index_add_`. Held against:
 - a numpy model of the CUDA kernel's two passes (`csrc/scatter.cu`: a
   segmented scan over chunks of 256 sorted positions, partial sums of cut
   segments combined per table row), which checks the kernel's bookkeeping
-  of segments, chunks and slots where no card is at hand. The kernel itself
-  is held against the plain version on the card (`test_torch_kernels.py`).
+  of segments, chunks and slots where no card is at hand;
+- `scatter_rows_ordered_reference`, the same order in PyTorch, `torch.equal`
+  to that model; and a model of pass 1's register steps (shuffles that read
+  the previous warp's values) equal to the shared-memory scan step by step.
+The kernel itself is held against both plain versions on the card
+(`test_torch_kernels.py`).
 """
 import jax
 import jax.numpy as jnp
@@ -80,9 +84,10 @@ def case(name, K, seed=0):
     rs = np.random.default_rng(seed)
     B, P = {"few_rows": (5000, 7), "many_rows": (3001, 4000),
             "one_row": (2000, 9), "tiny": (5, 3), "exact_chunks": (1024, 4),
-            "runs": (4096, 500)}[name]
-    if name == "one_row":
-        idx = np.full(B, 4)
+            "runs": (4096, 500), "wrapping_row": (40 * 256 + 3, 5),
+            "two_rows": (9000, 2)}[name]
+    if name in ("one_row", "wrapping_row"):    # more than 32 chunks: lanes wrap
+        idx = np.full(B, 4 if name == "one_row" else 3)
     elif name == "exact_chunks":     # segments that end on chunk edges
         idx = np.repeat(np.arange(4), 256)
     elif name == "runs":
@@ -95,7 +100,8 @@ def case(name, K, seed=0):
     return ct, idx.astype(np.int64), P
 
 
-NAMES = ["few_rows", "many_rows", "one_row", "tiny", "exact_chunks", "runs"]
+NAMES = ["few_rows", "many_rows", "one_row", "tiny", "exact_chunks", "runs",
+         "wrapping_row", "two_rows"]
 
 
 @pytest.mark.parametrize("K", [1, 3, 16, 36])
@@ -116,6 +122,94 @@ def test_scatter_rows_matches_definition_and_kernel_model(name, K):
     rows = torch.as_tensor(np.ascontiguousarray(ct.T))
     assert torch.equal(ou.scatter_rows(rows.t(), torch.as_tensor(idx), P),
                        torch.as_tensor(got))
+
+
+@pytest.mark.parametrize("K", [1, 3, 16, 36])
+@pytest.mark.parametrize("name", NAMES)
+def test_ordered_reference_is_the_kernel_model(name, K):
+    ct, idx, P = case(name, K)
+    got = ou.scatter_rows_ordered_reference(torch.as_tensor(ct), torch.as_tensor(idx), P)
+    assert torch.equal(got, torch.as_tensor(kernel_model(ct, idx, P)))
+
+
+@pytest.mark.parametrize("K", [1, 36])
+@pytest.mark.parametrize("name", NAMES)
+def test_ordered_reference_matches_definition(name, K):
+    ct, idx, P = case(name, K)
+    want = np.zeros((P, K), np.float64)
+    np.add.at(want, idx, ct.T.astype(np.float64))
+    mass = np.zeros((P, K), np.float64)
+    np.add.at(mass, idx, np.abs(ct.T).astype(np.float64))
+    got = ou.scatter_rows_ordered_reference(torch.as_tensor(ct), torch.as_tensor(idx), P)
+    assert (np.abs(got.numpy() - want) <= 1e-5 * mass + 1e-6).all()
+    rows = torch.as_tensor(np.ascontiguousarray(ct.T))     # a strided view
+    assert torch.equal(ou.scatter_rows_ordered_reference(rows.t(), torch.as_tensor(idx), P),
+                       got)
+
+
+def chunk_scan(x, run_start):
+    """Pass 1's segmented scan of one chunk as the shared-memory steps take
+    it: x (256, K), run_start (256,) -> (256, K)."""
+    acc, j, d = x.copy(), np.arange(CHUNK), 1
+    while d < CHUNK:
+        take = j - d >= run_start
+        shifted = np.zeros_like(acc)
+        shifted[d:] = acc[:-d]
+        acc = np.where(take[:, None], acc + shifted, acc)
+        d *= 2
+    return acc
+
+
+def chunk_scan_registers(x, run_start):
+    """The same scan as `csrc/scatter.cu` runs it: steps 1..16 per warp with
+    shuffles, lane l < d reading lane l - d + 32 of the previous warp's values
+    (advanced through steps 1..8 by the same warp), then 32, 64, 128 through
+    shared memory. Lanes whose partner lies outside what a warp holds add
+    nothing, as there."""
+    acc = x.copy()
+    lane = np.arange(32)
+    for w in range(CHUNK // 32):
+        j = 32 * w + lane
+        own = x[j].copy()
+        prev = x[j - 32].copy() if w else np.zeros_like(own)
+        prev_start = run_start[j - 32] if w else np.zeros(32, np.int64)
+        d = 1
+        while d < 32:
+            offer = np.where((lane < 32 - d)[:, None], own, prev)
+            frm = offer[(lane - d) & 31]                   # __shfl_sync
+            if d < 16:
+                prev_from = prev[np.maximum(lane - d, 0)]  # __shfl_up_sync
+                upd = (lane >= d) & (j - 32 - d >= prev_start)
+                prev = np.where(upd[:, None], prev + prev_from, prev)
+            own = np.where((j - d >= run_start[j])[:, None], own + frm, own)
+            d *= 2
+        acc[j] = own
+    jj, d = np.arange(CHUNK), 32
+    while d < CHUNK:
+        take = jj - d >= run_start
+        shifted = np.zeros_like(acc)
+        shifted[d:] = acc[:-d]
+        acc = np.where(take[:, None], acc + shifted, acc)
+        d *= 2
+    return acc
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_register_steps_model_is_the_shared_memory_scan(name):
+    ct, idx, P = case(name, 3, seed=5)
+    order = np.argsort(idx, kind="stable")
+    sidx = idx[order]
+    starts = np.searchsorted(sidx, np.arange(P + 1), side="left")
+    B = idx.size
+    for base in range(0, B, CHUNK):
+        n = min(CHUNK, B - base)
+        x = np.zeros((CHUNK, 3), np.float32)
+        x[:n] = ct[:, order[base:base + n]].T
+        run_start = np.arange(CHUNK)              # dead positions never add
+        run_start[:n] = np.maximum(starts[sidx[base:base + n]] - base, 0)
+        want = chunk_scan(x, run_start)
+        got = chunk_scan_registers(x, run_start)
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32)), base
 
 
 def test_fetch_cols_gradient_matches_jax():
