@@ -14,8 +14,13 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    card and, where one PyTorch call computes the same function, that call's
    time (a plain version is timed over the one call that the comparison
    makes). The flat walks (closest, anyhit) and the gather on Cornell primary
-   and shadow rays at B = 524,288 and on a seeded soup of 8,192 small
-   triangles (64 clusters) at a non-aligned B with ~10% dead rays. The
+   (uniform pixels, and in the render's tile order) and shadow rays at B =
+   524,288 and on a seeded soup of 8,192 small triangles (64 clusters) at a
+   non-aligned B with ~10% dead rays, each walk bit for bit against its plain
+   version, with its bound and share on the soup and, for each input, its
+   flat fan-out counted in PyTorch: the tiles that list a cluster, the pairs
+   a walk holding a ray a thread tests (listed x 128), the pairs the rays ask
+   for (at tmax; closest hit also at the final t) and the pairs needed. The
    two-level walks (closest_super, anyhit_super) and the gather at P =
    65,544 on a seeded mesh of 36,996 faces (512 clusters, 32 superclusters)
    that is written as an OBJ file to the temp directory and loaded through
@@ -125,14 +130,19 @@ device. Imports no JAX.
 
     python3 chip_smoke.py --walks LABEL OUT_DIR
 
-times only the gather and the two-level walks (D beside H, E beside I) on
-the mesh's queries of phase 2 (`time_walks`), with D's fan-out, and the
-scatter-add (J) on the mesh's and Cornell's primary-hit rows, one row and
-the light rows of 8 and 2 lights, with its parts; one JSON line tagged LABEL. It
-saves D's and E's outputs and hashes of C's and J's in OUT_DIR or compares
-them with a run's saved there (a difference fails the run). To compare two checkouts
-on one card, copy this script into the other one's root and run the two in
-turns (parent, change, change, parent) with the same OUT_DIR.
+times only the flat walks (A beside F, B beside G) on Cornell's primary,
+tile-ordered primary and shadow rays, the soup's two queries and the
+primary and sorted bounce-1 wavefronts of the walk profile's sphere, with
+their bounds and flat fan-outs, reached through `_prep` and `_searches`
+(`time_flat_walks`); the gather and the two-level walks (D beside H, E
+beside I) on the mesh's queries of phase 2 (`time_walks`), with D's
+fan-out; and the scatter-add (J) on the mesh's and Cornell's primary-hit
+rows, one row and the light rows of 8 and 2 lights, with its parts; one
+JSON line tagged LABEL. It saves hashes of A's and B's outputs, D's and E's
+outputs and hashes of C's and J's in OUT_DIR or compares them with a run's
+saved there (a difference fails the run). To compare two checkouts on one
+card, copy this script into the other one's root and run the two in turns
+(parent, change, change, parent) with the same OUT_DIR.
 
 A kernel's bound is the larger of two times: the bytes of its inputs and
 outputs over the card's memory rate (3.35 TB/s), and the fp32 operations of
@@ -144,8 +154,9 @@ triangles of every cluster (flat path: listed for its tile; two-level path:
 child of a supercluster listed for its tile) whose box it enters no later
 than its final hit; a live any-hit ray that ends unoccluded needs every such
 cluster whose box it enters before tmax, and one that ends occluded needs one
-cluster; a dead ray needs none. "Enters" is the slab test of
-`ops.intersect.refine_children`. A fused-cull search needs the same tests as
+cluster; a dead ray needs none. "Enters" is the slab test of `enters`, on
+the box as it is: the walks' own box test grows each box by a margin and so
+asks for a few more pairs than an answer needs. A fused-cull search needs the same tests as
 the list walk on the same rays, plus one slab test (27 fp32 operations: per
 axis two subtractions, two products, a minimum, a maximum and two running
 extremes, then three comparisons) for every live ray against every live box
@@ -184,7 +195,8 @@ FIT_SCALE = 8.0             # Adam moves every coordinate by about lr a step,
                             # faster than the albedo fit gains.
 SMALL = 64                  # side of the kernels-vs-plain comparison renders
 MESH_FACES = 36996          # the face count of the reference's largest model
-INCOHERENT = 65536 - 37     # rays of the batch of unrelated rays around the mesh
+UNRELATED = 65536 - 37      # rays of a batch of unrelated rays (around the
+                            # mesh, through the soup): not a multiple of 128
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS = 67e12          # fp32 outside the tensor cores, same sheet
@@ -287,6 +299,48 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def listed_mask(lists, counts):
+    """(tiles, N) bool from a walk's lists (tiles, N) and counts: True where
+    the tile lists cluster (or supercluster) n."""
+    import torch
+
+    tiles, N = lists.shape
+    slot = torch.arange(N, device=lists.device)[None, :] < counts[:, None]
+    member = torch.zeros((tiles, N + 1), dtype=torch.bool, device=lists.device)
+    member.scatter_(1, torch.where(slot, lists.long(), N), True)
+    return member[:, :N]
+
+
+def enters(bounds, rays, limit):
+    """The slab test by which a bound counts the pairs an answer needs:
+    (B, S, W) bool, True where ray b enters box j of group s (bounds
+    (S, 7, W): min xyz, max xyz, live) no later than `limit` (B,) and leaves
+    it after t = 0. The box as it is, with the cull's IEEE reciprocal and the
+    two comparisons widened by REFINE_REL * x + REFINE_ABS: the child
+    refinement of kernels D and E until their boxes grew a margin. It is kept
+    apart from the walks' box test (`ops.intersect.refine_children`), so
+    that a change to that test does not move the bound."""
+    import torch
+
+    from mafrixraytracing_torch.ops import intersect as oi
+
+    tn = tf = None
+    for a in range(3):
+        oa = rays[a][:, None, None]
+        inv = oi._safe_inverse(rays[3 + a])[:, None, None]
+        t0 = (bounds[None, :, a, :] - oa) * inv
+        t1 = (bounds[None, :, 3 + a, :] - oa) * inv
+        lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        tn = lo if tn is None else torch.maximum(tn, lo)
+        tf = hi if tf is None else torch.minimum(tf, hi)
+    tn = tn.clamp(min=-oi.BIG)
+    tf = tf.clamp(max=oi.BIG)
+    lim = limit[:, None, None]
+    return ((bounds[None, :, 6, :] > 0.5)
+            & (tn <= tf + (oi.REFINE_REL * tf.abs() + oi.REFINE_ABS)) & (tf > 0.0)
+            & (tn <= lim + (oi.REFINE_REL * lim + oi.REFINE_ABS)))
+
+
 def walk_bound(scene, walk, t_min, t_final=None, occ=None, fused_walk=None):
     """The bound of one walk call on these inputs (see the module docstring)
     -> dict(bound_ms, bound_by, ray_cluster_pairs). `t_final` (closest hit:
@@ -305,13 +359,11 @@ def walk_bound(scene, walk, t_min, t_final=None, occ=None, fused_walk=None):
     bounds = oi.pack_bounds(scene)   # every cluster's box, (S, 7, 16)
     S = bounds.shape[0]
     # member[tile, s, j]: cluster s * 16 + j is listed for the tile
-    slot = torch.arange(N, device=rays.device)[None, :] < counts[:, None]
-    member = torch.zeros((tiles, N + 1), dtype=torch.bool, device=rays.device)
-    member.scatter_(1, torch.where(slot, lists.long(), N), True)
+    member = listed_mask(lists, counts)
     if oi._is_super(walk):
-        member = member[:, :S, None]
+        member = member[:, :, None]
     else:
-        member = torch.nn.functional.pad(member[:, :N], (0, S * oi.SUPER - N))
+        member = torch.nn.functional.pad(member, (0, S * oi.SUPER - N))
         member = member.reshape(tiles, S, oi.SUPER)
     live = tmax > t_min
     if occ is None:
@@ -323,7 +375,7 @@ def walk_bound(scene, walk, t_min, t_final=None, occ=None, fused_walk=None):
     step = 1 << 16
     for s in range(0, B, step):
         e = min(B, s + step)
-        keep = oi.refine_children(bounds, rays[:, s:e], limit[s:e])
+        keep = enters(bounds, rays[:, s:e], limit[s:e])
         keep = keep.reshape(-1, oi.TILE, S, oi.SUPER)
         pairs += int((keep & member[s // oi.TILE:e // oi.TILE, None]).sum())
     flops = pairs * oi.CLUSTER_SIZE * FLOPS_PER_TEST
@@ -353,11 +405,8 @@ def count_asks(walk, limit):
     from mafrixraytracing_torch.ops import intersect as oi
 
     bounds, lists, counts, rays = walk[1], walk[2], walk[3], walk[5]
-    tiles, S = lists.shape
-    slot = torch.arange(S, device=rays.device)[None, :] < counts[:, None]
-    member = torch.zeros((tiles, S + 1), dtype=torch.bool, device=rays.device)
-    member.scatter_(1, torch.where(slot, lists.long(), S), True)
-    member = member[:, :S, None]
+    S = lists.shape[1]
+    member = listed_mask(lists, counts)[:, :, None]
     staged = asked = 0
     step = 1 << 16
     for s in range(0, rays.shape[1], step):
@@ -431,15 +480,62 @@ def print_closest_fanout(f, label):
           f"lanes busy a staged child {f['lane_use_lo']:.4f} to {f['lane_use_hi']:.4f}")
 
 
-def compare_closest(walk, t_min, label, same_as=None):
-    """A closest-hit kernel against its plain version on one walk input, and
-    (`same_as`: another kernel's (t, idx) on the same rays) bit for bit
-    against that kernel. The two-level and the fused kernels must equal their
-    plain versions bit for bit too. Returns (max |dt|, t, idx, the plain
-    version's ms)."""
+def flat_fanout(scene, walk, t_min, needed_pairs, t_final=None):
+    """The fan-out of a flat walk input (kernel A's or B's operands), counted
+    in PyTorch: the tiles that list a cluster, the clusters listed a tile,
+    the (ray, cluster) pairs that a walk holding a ray a thread tests (every
+    listed cluster against the tile's 128 rays: an upper bound, since the
+    exit may stop it earlier), the pairs whose ray asks for the cluster (the
+    walks' box test, `refine_children` on the cluster boxes, over each
+    tile's list: at tmax, an upper bound for both walks, and with `t_final`
+    at the closest-hit walk's final t, a lower bound) and `needed_pairs`
+    (`walk_bound`'s count). It reads only the lists, counts and rays of
+    `walk`, so it counts a parent checkout's operands too (t_min >= 0)."""
     import torch
 
     from mafrixraytracing_torch.ops import intersect as oi
+
+    lists, counts, rays = walk[-4], walk[-3], walk[-1]
+    tiles, C = lists.shape
+    boxes = oi.pack_aabbs(scene.cluster_min, scene.cluster_max)[None, :oi.BOUNDS_ROWS, :C]
+    member = listed_mask(lists, counts)
+    live = rays[6] > t_min
+
+    def asked(limit):
+        n = 0
+        step = 1 << 16
+        for s in range(0, rays.shape[1], step):
+            e = min(rays.shape[1], s + step)
+            keep = oi.refine_children(boxes, rays[:, s:e], limit[s:e])[:, 0]
+            keep = keep.reshape(-1, oi.TILE, C) & member[s // oi.TILE:e // oi.TILE, None]
+            n += int(keep.sum())
+        return n
+
+    f = dict(tiles=tiles, tiles_listing=int((counts > 0).sum()),
+             listed_a_tile=float(counts.float().mean()),
+             ray_a_thread_pairs=int(counts.sum()) * oi.TILE,
+             asked_at_tmax=asked(torch.where(live, rays[6], -oi.BIG)),
+             pairs_needed=needed_pairs)
+    if t_final is not None:
+        f["asked_at_final_t"] = asked(torch.where(live, t_final, -oi.BIG))
+    return f
+
+
+def print_flat_fanout(f, label):
+    lo = f.get("asked_at_final_t")
+    print(f"  flat fan-out {label}: {f['tiles_listing']} of {f['tiles']} tiles list a "
+          f"cluster, {f['listed_a_tile']:.2f} listed a tile; (ray, cluster) pairs tested by "
+          f"a walk that holds a ray a thread {f['ray_a_thread_pairs']} (listed x 128), "
+          f"asked " + ("" if lo is None else f"{lo} (at the final t) to ")
+          + f"{f['asked_at_tmax']} (at tmax), needed {f['pairs_needed']}")
+
+
+def compare_closest(walk, t_min, label, same_as=None):
+    """A closest-hit kernel against its plain version on one walk input, bit
+    for bit, and (`same_as`: another kernel's (t, idx) on the same rays) bit
+    for bit against that kernel. Returns (max |dt|, t, idx, the plain
+    version's ms)."""
+    import torch
 
     kernel, plain, _, _ = pick(walk)
     tk, ik = kernel(*walk, t_min)
@@ -456,8 +552,7 @@ def compare_closest(walk, t_min, label, same_as=None):
           + ("" if same_as is None else
              f" bit-equal to the list kernel={torch.equal(tk, same_as[0]) and torch.equal(ik, same_as[1])}"))
     check(bad_idx == 0 and t_ok, f"closest kernel disagrees on {label}")
-    if oi._is_fused(walk) or oi._is_super(walk):
-        check(exact, f"closest kernel is not bit-equal to its plain version on {label}")
+    check(exact, f"closest kernel is not bit-equal to its plain version on {label}")
     if same_as is not None:
         check(torch.equal(tk, same_as[0]) and torch.equal(ik, same_as[1]),
               f"fused closest kernel differs from the list kernel on {label}")
@@ -567,7 +662,7 @@ def compare_walk_stats(scene, walk, t_min, label, closest_out, timed):
     torch.cuda.synchronize()
     (tp, ip, wp), dbg_plain_ms = run_once_ms(lambda: oi.closest_dbg_reference(*walk, t_min))
     (tq, iq), full_plain_ms = run_once_ms(lambda: oi.closest_full_reference(*walk, t_min))
-    counts = walk[2]
+    counts = walk[-3]
     ok = dict(
         dbg_is_closest=torch.equal(td, ta) and torch.equal(id_, ia),
         full_is_closest=torch.equal(tf, ta) and torch.equal(if_, ia),
@@ -892,6 +987,56 @@ def wavefront_uv(torch, dev, gen):
             (py + torch.rand(n, generator=gen, device=dev)) / HEIGHT)
 
 
+def cornell_rays(torch, dev, cs, t_min):
+    """Cornell's queries of phase 2, made from seeds -> {name: (o, d, t_max)}:
+    "primary", one wavefront of uniform random pixels (the kind of input of
+    the bounces >= 1: neighbouring rays lie far apart); "tiled", one
+    wavefront in the main path's size and ray order (its bounce 0);
+    "shadow", NEE-like shadow rays from the primary hits toward points on the
+    light; and "primary_hits", the primary rays' triangle indices."""
+    from mafrixraytracing_torch.core.v3 import V3
+    from mafrixraytracing_torch.ops import intersect as oi
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B = WAVEFRONT
+    u = torch.rand(B, generator=gen, device=dev)
+    v = torch.rand(B, generator=gen, device=dev)
+    o, d = cs.camera.get_rays(u, v)
+    t_hit, i_hit = oi.find_closest_soa(cs.scene, o, d, t_min, 1e8)
+    hit = i_hit >= 0
+    p = o + d * torch.where(hit, t_hit, 0.0)
+    lx = (torch.rand(B, generator=gen, device=dev) - 0.5) * 0.47
+    lz = (torch.rand(B, generator=gen, device=dev) - 0.5) * 0.47
+    to_l = V3(lx - p.x, 1.98 - p.y, lz - p.z)
+    dist = torch.sqrt(to_l.x**2 + to_l.y**2 + to_l.z**2)
+    sd = V3(to_l.x / dist, to_l.y / dist, to_l.z / dist)
+    so = p + sd * 1e-3
+    s_tmax = torch.where(hit, dist - 2e-3, 0.0)
+    ut, vt = wavefront_uv(torch, dev, torch.Generator(device=dev).manual_seed(13))
+    ot, dt = cs.camera.get_rays(ut, vt)
+    return dict(primary=(o, d, 1e8), tiled=(ot, dt, 1e8), shadow=(so, sd, s_tmax),
+                primary_hits=i_hit)
+
+
+def soup_rays(torch, dev):
+    """The soup's queries of phase 2: (o, d, closest-hit t_max, any-hit
+    t_max) for a non-aligned batch of unrelated rays, ~10% dead."""
+    import numpy as np
+
+    from mafrixraytracing_torch.core.v3 import V3
+
+    rs = np.random.default_rng(99)
+    Bs = UNRELATED
+    so_np = rs.uniform(-1.5, 1.5, (Bs, 3)).astype(np.float32)
+    sd_np = rs.normal(size=(Bs, 3)).astype(np.float32)
+    sd_np /= np.linalg.norm(sd_np, axis=1, keepdims=True)
+    dead = rs.random(Bs) < 0.1
+    tmax_c = np.where(dead, 0.0, 1e8).astype(np.float32)
+    tmax_a = np.where(dead, 0.0, rs.uniform(0.0, 2.0, Bs)).astype(np.float32)
+    to = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return V3.of(to(so_np)), V3.of(to(sd_np)), to(tmax_c), to(tmax_a)
+
+
 def mesh_rays(torch, dev, cs, t_min):
     """The mesh's queries of phase 2, made from seeds -> {name: (o, d, t_max)}:
     "primary", one wavefront in the main path's size and order; "shadow",
@@ -927,7 +1072,7 @@ def mesh_rays(torch, dev, cs, t_min):
     cut = lambda v: v.map(lambda c: c[:n_cut])  # noqa: E731
 
     rs = np.random.default_rng(77)
-    Bs = INCOHERENT
+    Bs = UNRELATED
     o_np = rs.normal(0.0, 1.0, (Bs, 3))
     o_np = (2.5 * o_np / np.linalg.norm(o_np, axis=1, keepdims=True)).astype(np.float32)
     d_np = (rs.uniform(-0.9, 0.9, (Bs, 3)) - o_np).astype(np.float32)
@@ -1088,15 +1233,17 @@ def phase_kernels_mesh(torch, dev, records, cornell_idx, cornell_P):
 
 
 def time_walks(torch, dev, label, out_dir):
-    """`--walks`: the gather (C) and the two-level walks (D and H, E and I,
-    H and I with their cull) timed on the mesh's queries of phase 2, with
-    D's fan-out on its two inputs, and the scatter-add (J) on the mesh's and
-    Cornell's primary-hit rows, one row and the light rows, with its parts from
-    the profiler; one JSON line. D's and E's outputs and hashes of the
-    gather's and of J's are saved in `out_dir`, or, when a run of another
+    """`--walks`: the flat walks (A and F, B and G, F and G with their cull)
+    on Cornell's, the soup's and the walk profile's sphere's queries
+    (`time_flat_walks`), the gather (C) and the two-level walks (D and H, E
+    and I) timed on the mesh's queries of phase 2, with D's fan-out on its
+    two inputs, and the scatter-add (J) on the mesh's and Cornell's
+    primary-hit rows, one row and the light rows, with its parts from the
+    profiler; one JSON line. D's and E's outputs and hashes of A's, B's, the
+    gather's and J's are saved in `out_dir`, or, when a run of another
     checkout saved them there, compared with those: two checkouts timed in
-    turns on one card must agree bit for bit. H must equal D and I equal E
-    bit for bit."""
+    turns on one card must agree bit for bit. F must equal A, G equal B, H
+    equal D and I equal E bit for bit."""
     import hashlib
 
     from mafrixraytracing_torch.geometry.intersect import packed_attr_table
@@ -1108,6 +1255,7 @@ def time_walks(torch, dev, label, out_dir):
     cs = compile_scene(mesh_spec(WIDTH, HEIGHT), device=dev)
     rays = mesh_rays(torch, dev, cs, t_min)
     rec, outputs = {}, {}
+    time_flat_walks(torch, dev, t_min, rec, outputs)
     for name in ("shadow", "shadow_cut", "incoherent_shadow"):
         lw, *_ = oi._prep(cs.scene, *rays[name][:2], t_min, rays[name][2], anyhit=True)
         fw, *_ = oi._prep(cs.scene, *rays[name][:2], t_min, rays[name][2], anyhit=True,
@@ -1155,10 +1303,81 @@ def time_walks(torch, dev, label, out_dir):
         os.makedirs(out_dir, exist_ok=True)
         torch.save(outputs, path)
     print(f"[{label}] " + json.dumps(rec))
-    check(all(v for k, v in rec.items() if k.startswith(("H equals", "I equals"))),
+    check(all(v for k, v in rec.items()
+              if k.startswith(("F equals", "G equals", "H equals", "I equals"))),
           "a fused walk differs from its list walk")
     check(all(rec.get("outputs equal to the saved run's", {}).values()),
           "the walks' outputs differ from the saved run's")
+
+
+def flat_walk_inputs(torch, dev, t_min):
+    """The flat walks' inputs of `--walks`, from seeds: (name, scene, o, d,
+    t_max, any hit) for Cornell's primary rays (uniform pixels), its primary
+    rays in tile order and its shadow rays (phase 2's), the soup's closest-
+    and any-hit rays (phase 2's), and the primary and sorted bounce-1
+    wavefronts of `profile_walk`'s sphere (122 clusters), each also as an
+    any-hit query to its tmax."""
+    from mafrixraytracing_torch import profile_walk
+    from mafrixraytracing_torch.core import rng
+    from mafrixraytracing_torch.scene.builtin import cornell_box
+    from mafrixraytracing_torch.scene.compiler import compile_scene
+
+    cs = compile_scene(cornell_box(256, 256), device=dev)
+    cr = cornell_rays(torch, dev, cs, t_min)
+    soup = soup_scene(dev)
+    qo, qd, tmax_c, tmax_a = soup_rays(torch, dev)
+    sphere = compile_scene(profile_walk.flat_spec(WIDTH)[0], device=dev)
+    o, d, skeys = profile_walk.primary_wavefront(sphere.camera, WIDTH, rng.root_key(0, dev))
+    o1, d1, tmax1 = profile_walk.bounce1_wavefront(sphere.scene, o, d, skeys)
+    return [("cornell primary", cs.scene, *cr["primary"], False),
+            ("cornell primary, tile order", cs.scene, *cr["tiled"], False),
+            ("cornell shadow", cs.scene, *cr["shadow"], True),
+            ("soup", soup, qo, qd, tmax_c, False),
+            ("soup", soup, qo, qd, tmax_a, True),
+            ("sphere primary", sphere.scene, o, d, 1e8, False),
+            ("sphere primary", sphere.scene, o, d, 1e8, True),
+            ("sphere bounce 1", sphere.scene, o1, d1, tmax1, False),
+            ("sphere bounce 1", sphere.scene, o1, d1, tmax1, True)]
+
+
+def time_flat_walks(torch, dev, t_min, rec, outputs):
+    """A and F (closest hit) or B and G (any hit) on each input of
+    `flat_walk_inputs`, reached through `_prep` and `_searches` so that a
+    parent checkout runs the same code: their times by CUDA events and each
+    kernel's own device time (`kernel_device_ms`), F equal to A and G to B,
+    hashes of A's and B's outputs, and the flat fan-out of each input."""
+    import hashlib
+
+    from mafrixraytracing_torch.ops import intersect as oi
+
+    def sha(*ts):
+        return "".join(hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+                       for t in ts)
+
+    for name, scene, o, d, t_max, anyhit in flat_walk_inputs(torch, dev, t_min):
+        lw, *_ = oi._prep(scene, o, d, t_min, t_max, anyhit=anyhit)
+        fw, *_ = oi._prep(scene, o, d, t_min, t_max, anyhit=anyhit, fused=True)
+        check(not oi._is_super(lw), f"{name} must take the flat path")
+        k = 1 if anyhit else 0
+        walk_fn, fused_fn = oi._searches(lw)[k], oi._searches(fw)[k]
+        a, f = ("B", "G") if anyhit else ("A", "F")
+        out = walk_fn(*lw, t_min)
+        fout = fused_fn(*fw, t_min)
+        out, fout = ((out,), (fout,)) if anyhit else (out, fout)
+        outputs[f"{a} {name}"] = sha(*out)
+        rec[f"{f} equals {a}, {name}"] = all(torch.equal(x, y) for x, y in zip(out, fout))
+        rec[f"{a} {name}"] = time_ms(lambda: walk_fn(*lw, t_min))  # noqa: B023
+        rec[f"{f} {name}"] = time_ms(lambda: fused_fn(*fw, t_min))  # noqa: B023
+        kind = "anyhit" if anyhit else "closest"
+        rec[f"{a} {name}, device"] = kernel_device_ms(
+            torch, lambda: walk_fn(*lw, t_min), f"{kind}_kernel")  # noqa: B023
+        rec[f"{f} {name}, device"] = kernel_device_ms(
+            torch, lambda: fused_fn(*fw, t_min), f"fused_{kind}_kernel")  # noqa: B023
+        bound = walk_bound(scene, lw, t_min, **({"occ": out[0]} if anyhit
+                                               else {"t_final": out[0]}))
+        rec[f"{a} bound, {name}"] = bound["bound_ms"]
+        rec[f"{a} fan-out, {name}"] = flat_fanout(
+            scene, lw, t_min, bound["ray_cluster_pairs"], None if anyhit else out[0])
 
 
 def scatter_walk_inputs(torch, dev, mesh_P, mesh_idx):
@@ -1189,12 +1408,11 @@ def scatter_walk_inputs(torch, dev, mesh_P, mesh_idx):
              torch.randint(0, 2, (B,), generator=gen, device=dev), 2)]
 
 
-def profiled_parts(torch, fn, reps: int = 10) -> dict:
-    """Device ms a call of fn() spends in each part of kernel J, from
-    torch.profiler's kernel records over `reps` calls: the sort, searchsorted,
-    pass 1 (`scatter_chunk_kernel`), pass 2 (`scatter_combine_kernel`) and
-    the other launches. Reads kernel names only, so it breaks down any
-    checkout's J."""
+def profiled_ms(torch, fn, part_of, reps: int = 10) -> dict:
+    """Device ms a call of fn() spends in each part, from torch.profiler's
+    kernel records over `reps` calls: `part_of(kernel name)` names the part a
+    kernel belongs to, or None to leave it out. Reads kernel names only, so
+    it measures any checkout's kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1207,13 +1425,37 @@ def profiled_parts(torch, fn, reps: int = 10) -> dict:
     for e in prof.events():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
-        name = e.name.lower()
-        part = ("pass 1" if "scatter_chunk" in name else
-                "pass 2" if "scatter_combine" in name else
-                "searchsorted" if "searchsorted" in name else
-                "sort" if "sort" in name else "other")
-        parts[part] = parts.get(part, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+        part = part_of(e.name)
+        if part is not None:
+            parts[part] = parts.get(part, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
     return parts
+
+
+def j_part(name: str) -> str:
+    """The part of kernel J a kernel of its call belongs to."""
+    name = name.lower()
+    return ("pass 1" if "scatter_chunk" in name else
+            "pass 2" if "scatter_combine" in name else
+            "searchsorted" if "searchsorted" in name else
+            "sort" if "sort" in name else "other")
+
+
+def profiled_parts(torch, fn, reps: int = 10) -> dict:
+    """Device ms a call of fn() spends in each part of kernel J: the sort,
+    searchsorted, pass 1 (`scatter_chunk_kernel`), pass 2
+    (`scatter_combine_kernel`) and the other launches."""
+    return profiled_ms(torch, fn, j_part, reps)
+
+
+def kernel_device_ms(torch, fn, name, reps: int = 10) -> float:
+    """Device ms a call of fn() spends in the CUDA kernel called `name`: the
+    kernel's own time, which a short kernel's CUDA events cannot tell from
+    its launch from Python."""
+    import re
+
+    pattern = re.compile(rf"\b{name}\(")
+    return profiled_ms(torch, fn, lambda n: name if pattern.search(n) else None,
+                       reps).get(name, 0.0)
 
 
 def same_outputs(a, b) -> bool:
@@ -1228,9 +1470,6 @@ def same_outputs(a, b) -> bool:
 
 
 def phase_kernels(torch, dev):
-    import numpy as np
-
-    from mafrixraytracing_torch.core.v3 import V3
     from mafrixraytracing_torch.geometry.intersect import packed_attr_table
     from mafrixraytracing_torch.ops import intersect as oi
     from mafrixraytracing_torch.ops import unpack as ou
@@ -1242,33 +1481,34 @@ def phase_kernels(torch, dev):
     # --- Cornell primary rays at the main path's wavefront size ---
     cs = compile_scene(cornell_box(256, 256), device=dev)
     scene = cs.scene
-    gen = torch.Generator(device=dev).manual_seed(7)
-    B = WAVEFRONT
-    u = torch.rand(B, generator=gen, device=dev)
-    v = torch.rand(B, generator=gen, device=dev)
-    o, d = cs.camera.get_rays(u, v)
+    rays = cornell_rays(torch, dev, cs, t_min)
+    o, d, _ = rays["primary"]
+    B = o.x.shape[0]
     walk, _, _, _, _ = oi._prep(scene, o, d, t_min, 1e8, anyhit=False)
     err_c, t_k, idx, ms_cp = compare_closest(walk, t_min, "cornell primary")
     ms_c = time_ms(lambda: oi.closest_kernel(*walk, t_min))
     bound_c = walk_bound(scene, walk, t_min, t_final=t_k)
+    print_flat_fanout(flat_fanout(scene, walk, t_min, bound_c["ray_cluster_pairs"], t_k),
+                      f"cornell primary, B = {B:,}")
     fused_c = fused_vs_list(scene, o, d, 1e8, False, walk, (t_k, idx), t_min,
                             "cornell primary")
+    # the same pixels' rays in the render's tile order (its bounce 0)
+    ot, dt, _ = rays["tiled"]
+    walk_t, *_ = oi._prep(scene, ot, dt, t_min, 1e8, anyhit=False)
+    err_ct, t_t, _, _ = compare_closest(walk_t, t_min, "cornell primary, tile order")
+    print_flat_fanout(flat_fanout(scene, walk_t, t_min, walk_bound(
+        scene, walk_t, t_min, t_final=t_t)["ray_cluster_pairs"], t_t),
+        f"cornell primary in tile order, B = {ot.x.shape[0]:,}")
 
     # NEE-like shadow rays: from the primary hits toward points on the light
-    t_hit, i_hit = oi.find_closest_soa(scene, o, d, t_min, 1e8)
-    hit = i_hit >= 0
-    p = o + d * torch.where(hit, t_hit, 0.0)
-    lx = (torch.rand(B, generator=gen, device=dev) - 0.5) * 0.47
-    lz = (torch.rand(B, generator=gen, device=dev) - 0.5) * 0.47
-    to_l = V3(lx - p.x, 1.98 - p.y, lz - p.z)
-    dist = torch.sqrt(to_l.x**2 + to_l.y**2 + to_l.z**2)
-    sd = V3(to_l.x / dist, to_l.y / dist, to_l.z / dist)
-    so = p + sd * 1e-3
-    s_tmax = torch.where(hit, dist - 2e-3, 0.0)
+    i_hit = rays["primary_hits"]
+    so, sd, s_tmax = rays["shadow"]
     swalk, _, _, _, _ = oi._prep(scene, so, sd, t_min, s_tmax, anyhit=True)
     err_a, occ_k, ms_ap = compare_anyhit(swalk, t_min, "cornell shadow")
     ms_a = time_ms(lambda: oi.anyhit_kernel(*swalk, t_min))
     bound_a = walk_bound(scene, swalk, t_min, occ=occ_k)
+    print_flat_fanout(flat_fanout(scene, swalk, t_min, bound_a["ray_cluster_pairs"]),
+                      f"cornell shadow, B = {B:,}")
     fused_a = fused_vs_list(scene, so, sd, s_tmax, True, swalk, occ_k, t_min,
                             "cornell shadow")
 
@@ -1291,23 +1531,21 @@ def phase_kernels(torch, dev):
     # --- synthetic soup: 64 clusters, non-aligned batch, ~10% dead rays ---
     soup = soup_scene(dev)
     check(soup.cluster_min.shape[0] == 64, "soup must have 64 clusters")
-    rs = np.random.default_rng(99)
-    Bs = 65536 - 37
-    so_np = rs.uniform(-1.5, 1.5, (Bs, 3)).astype(np.float32)
-    sd_np = rs.normal(size=(Bs, 3)).astype(np.float32)
-    sd_np /= np.linalg.norm(sd_np, axis=1, keepdims=True)
-    dead = rs.random(Bs) < 0.1
-    tmax_c = np.where(dead, 0.0, 1e8).astype(np.float32)
-    tmax_a = np.where(dead, 0.0, rs.uniform(0.0, 2.0, Bs)).astype(np.float32)
-    to = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-    qo, qd = V3.of(to(so_np)), V3.of(to(sd_np))
-    walk_s, _, _, _, _ = oi._prep(soup, qo, qd, t_min, to(tmax_c), anyhit=False)
+    qo, qd, tmax_c, tmax_a = soup_rays(torch, dev)
+    walk_s, _, _, _, _ = oi._prep(soup, qo, qd, t_min, tmax_c, anyhit=False)
     err_cs, t_s, idx_s, ms_csp = compare_closest(walk_s, t_min, "soup")
-    walk_sa, _, _, _, _ = oi._prep(soup, qo, qd, t_min, to(tmax_a), anyhit=True)
+    walk_sa, _, _, _, _ = oi._prep(soup, qo, qd, t_min, tmax_a, anyhit=True)
     err_as, occ_s, ms_asp = compare_anyhit(walk_sa, t_min, "soup")
-    fused_cs = fused_vs_list(soup, qo, qd, to(tmax_c), False, walk_s, (t_s, idx_s),
+    bound_cs = walk_bound(soup, walk_s, t_min, t_final=t_s)
+    bound_as = walk_bound(soup, walk_sa, t_min, occ=occ_s)
+    Bs = walk_s[-1].shape[1]
+    print_flat_fanout(flat_fanout(soup, walk_s, t_min, bound_cs["ray_cluster_pairs"], t_s),
+                      f"soup, closest hit, B = {Bs:,}")
+    print_flat_fanout(flat_fanout(soup, walk_sa, t_min, bound_as["ray_cluster_pairs"]),
+                      f"soup, any hit, B = {Bs:,}")
+    fused_cs = fused_vs_list(soup, qo, qd, tmax_c, False, walk_s, (t_s, idx_s),
                              t_min, "soup")
-    fused_as = fused_vs_list(soup, qo, qd, to(tmax_a), True, walk_sa, occ_s, t_min,
+    fused_as = fused_vs_list(soup, qo, qd, tmax_a, True, walk_sa, occ_s, t_min,
                              "soup")
     # the instrumented walks on Cornell (timed, as closest is) and on the soup
     stats = compare_walk_stats(scene, walk, t_min, "cornell primary", (t_k, idx), True)
@@ -1331,10 +1569,14 @@ def phase_kernels(torch, dev):
           "unpack kernel is not bit-exact on the soup")
     ms_cs = time_ms(lambda: oi.closest_kernel(*walk_s, t_min))
     ms_as = time_ms(lambda: oi.anyhit_kernel(*walk_sa, t_min))
-    print(f"  soup times (ms, kernel / plain): closest {ms_cs:.3f} / "
-          f"{ms_csp:.3f}, anyhit {ms_as:.3f} / {ms_asp:.3f}")
+    print(f"  soup times (ms, kernel / plain): closest {ms_cs:.4f} / "
+          f"{ms_csp:.3f}, anyhit {ms_as:.4f} / {ms_asp:.3f}")
+    for name, ms, b in (("closest", ms_cs, bound_cs), ("anyhit", ms_as, bound_as)):
+        print(f"  {name} on the soup (B = {Bs:,}): kernel {ms:.4f} ms, bound "
+              f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({b['bound_ms'] / ms:.4f} of it), "
+              f"{b['ray_cluster_pairs']} ray-cluster pairs needed")
 
-    records["closest"] = dict(max_abs_err=max(err_c, err_cs), ms=ms_c,
+    records["closest"] = dict(max_abs_err=max(err_c, err_ct, err_cs), ms=ms_c,
                               plain_ms=ms_cp, library_ms=None, **bound_c)
     records["anyhit"] = dict(max_abs_err=max(err_a, err_as), ms=ms_a,
                              plain_ms=ms_ap, library_ms=None, **bound_a)

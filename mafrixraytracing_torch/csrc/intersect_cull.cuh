@@ -9,9 +9,6 @@
 
 namespace {
 
-constexpr int CP = 128;          // box slots of the packed table (pack_aabbs)
-constexpr int AABB_ROWS = 7;     // rows the kernels read: min xyz, max xyz, live
-
 struct CullSmem {
   float box[AABB_ROWS * CP];     // the staged box table
   unsigned key[CP];              // tile-min entry per box, as bits

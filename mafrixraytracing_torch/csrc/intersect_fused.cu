@@ -35,7 +35,10 @@
 //      sorting network, since any thread can read any slot here. The count
 //      is the number of entries below BIG.
 //   4. The walk of intersect_common.cuh runs on the shared-memory list, so
-//      hits, ties and early exits are the list path's by construction.
+//      hits, ties and early exits are the list path's by construction. The
+//      flat walks (F, G: kernel A's and B's) test each ray against the box
+//      rows this cull staged; the two-level walks (H, I: D's and E's) stage
+//      each listed supercluster's child bounds.
 // The lists equal `_cull`'s, so each kernel agrees bit for bit with the list
 // kernel fed by `_cull`, and with its plain version. A ray with a NaN in its
 // origin passes no box (in `_cull` the NaN poisons entry and exit); a
@@ -43,12 +46,12 @@
 // count 0 and walks nothing.
 //
 // What bounds it on the H100. Operations, as the list walks: the slab tests
-// add 128 rays x n boxes x ~27 fp32 operations a tile, about the cost of one
-// cluster visit (128 x 128 tests of ~30) at n = 128 (H's and I's walks test
-// only the (ray, child) pairs their rays ask for: intersect_common.cuh). Bytes: a tile
-// reads its rays (3.5 KB), the box table (L2-resident) and 6 KB per visited
-// cluster, and writes 8 or 1 bytes a ray. 12.5 KB of static shared memory at
-// most (H).
+// add 128 rays x n boxes x ~27 fp32 operations a tile, the cost of ~115
+// (ray, cluster) pairs (128 tests of ~30 each) at n = 128; the walks test
+// only the (ray, cluster) or (ray, child) pairs their rays ask for
+// (intersect_common.cuh). Bytes: a tile reads its rays (3.5 KB), the box
+// table (L2-resident) and 6 KB per visited cluster, and writes 8 or 1 bytes
+// a ray. 15.9 KB of static shared memory at most (F).
 //
 // `tile_cull` (intersect_cull.cuh) is a __device__ function of its own: the
 // stand-alone cull kernel of cull.cu is a thin __global__ around it.
@@ -59,31 +62,33 @@ namespace {
 
 __global__ void __launch_bounds__(TILE) fused_closest_kernel(
     const float* __restrict__ tri, const float* __restrict__ aabbs,
-    const float* __restrict__ rays, int B, int n_box, float t_min,
-    float* __restrict__ t_out, int* __restrict__ i_out) {
-  __shared__ WalkSmem sm;
+    const float* __restrict__ rays, int B, int n_box, float t_min, float refine_rel,
+    float refine_abs, float* __restrict__ t_out, int* __restrict__ i_out) {
+  __shared__ ClosestFlatSmem sm;
   __shared__ CullSmem cs;
   const int r = blockIdx.x * TILE + threadIdx.x;
   Ray q = load_ray_nofar(rays, B, r);
   const int n = tile_cull(aabbs, n_box, q, cs);
-  float best_t = q.tmax;
-  int best_i = -1;
-  walk_closest(tri, cs.list, cs.entry, n, q, t_min, sm, best_t, best_i);
-  const bool hit = best_t < q.tmax;
+  float best_t;
+  int best_i;
+  walk_closest(tri, cs.box, cs.list, cs.entry, n, q, t_min, refine_rel, refine_abs, sm,
+               best_t, best_i);
   t_out[r] = best_t;
-  i_out[r] = hit ? best_i : -1;
+  i_out[r] = best_i;
 }
 
 __global__ void __launch_bounds__(TILE) fused_anyhit_kernel(
     const float* __restrict__ tri, const float* __restrict__ aabbs,
-    const float* __restrict__ rays, int B, int n_box, float t_min,
-    uint8_t* __restrict__ occ_out) {
-  __shared__ WalkSmem sm;
+    const float* __restrict__ rays, int B, int n_box, float t_min, float refine_rel,
+    float refine_abs, uint8_t* __restrict__ occ_out) {
+  __shared__ AnyhitFlatSmem sm;
   __shared__ CullSmem cs;
   const int r = blockIdx.x * TILE + threadIdx.x;
   Ray q = load_ray_nofar(rays, B, r);
   const int n = tile_cull(aabbs, n_box, q, cs);
-  occ_out[r] = walk_anyhit(tri, cs.list, cs.entry, n, q, t_min, sm) ? 1 : 0;
+  occ_out[r] =
+      walk_anyhit(tri, cs.box, cs.list, cs.entry, n, q, t_min, refine_rel, refine_abs, sm)
+          ? 1 : 0;
 }
 
 __global__ void __launch_bounds__(TILE) fused_closest_super_kernel(
@@ -128,24 +133,25 @@ __global__ void __launch_bounds__(TILE) fused_anyhit_super_kernel(
 // tmax -], the last row unread; the two-level closest-hit search takes t_min
 // >= 0 only. Each returns cudaGetLastError().
 extern "C" int mfx_fused_closest(const float* tri, const float* aabbs, const float* rays,
-                                 int B, int n_box, float t_min, float* t_out, int* i_out,
+                                 int B, int n_box, float t_min, float refine_rel,
+                                 float refine_abs, float* t_out, int* i_out,
                                  cudaStream_t stream) {
   const int tiles = B / TILE;
   if (n_box < 0 || n_box > CP) return (int)cudaErrorInvalidValue;
   if (tiles > 0)
-    fused_closest_kernel<<<tiles, TILE, 0, stream>>>(tri, aabbs, rays, B, n_box, t_min, t_out,
-                                                      i_out);
+    fused_closest_kernel<<<tiles, TILE, 0, stream>>>(tri, aabbs, rays, B, n_box, t_min,
+                                                      refine_rel, refine_abs, t_out, i_out);
   return (int)cudaGetLastError();
 }
 
 extern "C" int mfx_fused_anyhit(const float* tri, const float* aabbs, const float* rays,
-                                int B, int n_box, float t_min, uint8_t* occ_out,
-                                cudaStream_t stream) {
+                                int B, int n_box, float t_min, float refine_rel,
+                                float refine_abs, uint8_t* occ_out, cudaStream_t stream) {
   const int tiles = B / TILE;
   if (n_box < 0 || n_box > CP) return (int)cudaErrorInvalidValue;
   if (tiles > 0)
     fused_anyhit_kernel<<<tiles, TILE, 0, stream>>>(tri, aabbs, rays, B, n_box, t_min,
-                                                     occ_out);
+                                                     refine_rel, refine_abs, occ_out);
   return (int)cudaGetLastError();
 }
 

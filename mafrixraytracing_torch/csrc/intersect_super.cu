@@ -22,9 +22,9 @@
 // rays (bounce and shadow rays) make tiles whose rays ask for few children
 // each but many in all.
 // Closest hit (D): each ray's best is a 64-bit key in shared memory, the
-// bits of t (t > t_min >= 0, so they order as unsigned integers) above the
-// triangle index; a warp reduces its lanes' hits on one ray and one lane
-// lowers the key with atomicMin. The minimum of integer keys does not depend
+// bits of t in the order of the floats (`key_bits`) above the triangle
+// index; a warp reduces its lanes' hits on one ray and one lane lowers the
+// key with atomicMin (`closest_pair`, shared with the flat walks). The minimum of integer keys does not depend
 // on the order of the tests, so the smallest index still wins a tie.
 // Any hit (E): a hit sets the ray's blocked byte; a blocked ray is skipped.
 // walk_closest_super and walk_anyhit_super in intersect_common.cuh have the

@@ -108,14 +108,14 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         handle = ctypes.CDLL(str(build()))
         P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
-        handle.mfx_closest.argtypes = [P, P, P, P, P, I, I, F, P, P, P]
-        handle.mfx_anyhit.argtypes = [P, P, P, P, P, I, I, F, P, P]
+        handle.mfx_closest.argtypes = [P, P, P, P, P, P, P, I, I, F, F, F, P, P, P]
+        handle.mfx_anyhit.argtypes = [P, P, P, P, P, P, P, I, I, F, F, F, P, P]
         handle.mfx_unpack.argtypes = [P, P, I, I, P, P]
         handle.mfx_closest_super.argtypes = [P, P, P, P, P, P, I, I, I, F, F, F, P, P, P]
         handle.mfx_anyhit_super.argtypes = [P, P, P, P, P, P, I, I, I, F, F, F, P, P]
         handle.mfx_scatter.argtypes = [P, L, L, P, P, P, I, I, I, P, P, P, I, P]
-        handle.mfx_fused_closest.argtypes = [P, P, P, I, I, F, P, P, P]
-        handle.mfx_fused_anyhit.argtypes = [P, P, P, I, I, F, P, P]
+        handle.mfx_fused_closest.argtypes = [P, P, P, I, I, F, F, F, P, P, P]
+        handle.mfx_fused_anyhit.argtypes = [P, P, P, I, I, F, F, F, P, P]
         handle.mfx_fused_closest_super.argtypes = [P, P, P, P, I, I, I, F, F, F, P, P, P]
         handle.mfx_fused_anyhit_super.argtypes = [P, P, P, P, I, I, I, F, F, F, P, P]
         handle.mfx_cull.argtypes = [P, P, I, I, P, P, P, P, P]

@@ -10,7 +10,12 @@ Port of the list paths of `mafrixraytracing_tpu/ops/intersect_pallas.py`
    exit from its last surviving cluster.
 2. **Walk (CUDA kernels, `csrc/intersect.cu`).** Kernel A (`closest_kernel`)
    finds each ray's closest hit; kernel B (`anyhit_kernel`) answers shadow
-   queries. Both walk a tile's list front to back and exit early.
+   queries. Both walk a tile's list front to back and exit early; for each
+   listed cluster every ray tests its own box (the scene's `cluster_min` and
+   `cluster_max`, operands of the flat walk), and the cluster's triangles
+   are tested against only the rays that ask for it (a thread a triangle
+   when few ask, a ray a thread over the cluster's faces when many do). At
+   most `CP` = 128 clusters.
 
 Scenes with more than `SUPER_MIN_C` clusters take the **two-level path**:
 the cull runs on the superclusters (16 consecutive clusters each, a 16x
@@ -37,11 +42,12 @@ the three routes agree bit for bit. `cull_lists` dispatches: K for CUDA
 tensors, `cull_reference` (`_cull` on the packed table) for CPU tensors.
 
 Two instrumented walks, `closest_dbg_kernel` and `closest_full_kernel`
-(`csrc/intersect_stats.cu`), are kernel A with a counter of the clusters a
-tile walked and kernel A without its early exit. Only
-`mafrixraytracing_torch.profile_walk` launches them; their plain versions
-(`closest_dbg_reference`, `closest_full_reference`) model the walk step by
-step.
+(`csrc/intersect_stats.cu`), compute kernel A's function on A's operands
+with the walk that holds a ray a thread and stages every cluster it visits:
+one with a counter of the clusters a tile staged, one without the early
+exit. Only `mafrixraytracing_torch.profile_walk` launches them; their plain
+versions (`closest_dbg_reference`, `closest_full_reference`) model that walk
+step by step.
 
 Around them, as in the JAX package: mega triangles (huge walls and floors,
 excluded from the clusters) are tested densely first and cap `t_max`
@@ -57,10 +63,11 @@ children of the superclusters) listed for its tile, in the kernel's
 arithmetic and tie-break. The wrappers (`closest_hit`, `any_hit`,
 `closest_super_hit`, `any_super_hit`, `fused_closest_hit`, `fused_any_hit`,
 `fused_closest_super_hit`, `fused_any_super_hit`) launch the kernel for CUDA tensors and
-run the plain version for CPU tensors. The walk's early exit and the child
-refinement are culls that never change the result, so the plain versions
-have neither; `refine_children` states the refinement's arithmetic in plain
-PyTorch so that tests can show it keeps every child that holds a hit.
+run the plain version for CPU tensors. The walk's early exit and the box
+tests are culls that never change the result, so the plain versions have
+neither; `refine_children` (and `refine_clusters` for the flat table) states
+the box test's arithmetic in plain PyTorch so that tests can show it keeps
+every cluster that holds a hit.
 """
 from __future__ import annotations
 
@@ -89,10 +96,12 @@ CULL_KERNEL = False
 CP = 128            # box slots of the packed box table (pack_aabbs)
 AABB_ROWS = 8       # its rows: min xyz, max xyz, live, pad
 BOUNDS_ROWS = 7     # rows per supercluster in pack_bounds: min xyz, max xyz, live
-# Kernels D and E widen the two comparisons of their child refinement by this
-# much (their launchers pass these two numbers; `refine_children` uses the
-# same), so that rounding at a flat or axis-aligned child (entry == exit ==
-# limit) cannot drop a child whose triangle the dense plain version finds.
+# The walks grow each box of their box test by REFINE_REL times the scale of
+# the coordinates plus REFINE_ABS and widen its two comparisons by as much
+# relative to t (their launchers pass these two numbers; `refine_children`
+# uses the same), so that neither rounding at a flat or axis-aligned box
+# (entry == exit == limit) nor a grazing ray's inexact plane t can drop a
+# cluster whose triangle the dense plain version finds.
 REFINE_REL = 4e-6
 REFINE_ABS = 1e-6
 BIG = 1e30
@@ -337,13 +346,11 @@ def _listed_chunks(tri, lists, counts, rays, group: int = 1):
         yield s, e, r, listed, t, ok
 
 
-def closest_reference(tri, lists, counts, entries, rays, t_min: float,
-                      group: int = 1):
-    """Plain version of kernel A: for each ray, the hit with the smallest t
-    in (t_min, tmax) over the triangles of its tile's listed clusters,
-    smallest index on ties. Returns (t (B,) f32 = tmax on a miss,
-    idx (B,) int32, -1 on a miss). `entries` only steers the kernel's early
-    exit and is unused here."""
+def _dense_closest(tri, lists, counts, rays, t_min: float, group: int):
+    """The hit with the smallest t in (t_min, tmax) over the triangles of the
+    ray's tile's listed clusters (group 1) or superclusters (group SUPER),
+    smallest index on ties -> (t (B,) f32 = tmax on a miss, idx (B,) int32,
+    -1 on a miss)."""
     B = rays.shape[1]
     T = tri.shape[0] * CLUSTER_SIZE
     t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
@@ -362,15 +369,30 @@ def closest_reference(tri, lists, counts, entries, rays, t_min: float,
     return t_out, i_out
 
 
-def anyhit_reference(tri, lists, counts, entries, rays, t_min: float,
-                     group: int = 1):
-    """Plain version of kernel B: True where any triangle of the ray's
-    tile's listed clusters is hit in (t_min, tmax)."""
+def _dense_anyhit(tri, lists, counts, rays, t_min: float, group: int):
+    """True where any triangle of the ray's tile's listed clusters (group 1)
+    or superclusters (group SUPER) is hit in (t_min, tmax)."""
     occ = torch.empty((rays.shape[1],), dtype=torch.bool, device=rays.device)
     for s, e, r, listed, t, ok in _listed_chunks(tri, lists, counts, rays,
                                                  group):
         occ[s:e] = (ok & listed & (t > t_min) & (t < r[6])).any(dim=1)
     return occ
+
+
+def closest_reference(tri, cmin, cmax, lists, counts, entries, rays, t_min: float):
+    """Plain version of kernel A: for each ray, the hit with the smallest t
+    in (t_min, tmax) over every triangle of its tile's listed clusters,
+    smallest index on ties. Returns (t (B,) f32 = tmax on a miss,
+    idx (B,) int32, -1 on a miss). Dense: the kernel's box tests (`cmin`,
+    `cmax`) and early exit (`entries`) are culls and are not repeated here."""
+    return _dense_closest(tri, lists, counts, rays, t_min, 1)
+
+
+def anyhit_reference(tri, cmin, cmax, lists, counts, entries, rays, t_min: float):
+    """Plain version of kernel B: True where any triangle of the ray's
+    tile's listed clusters is hit in (t_min, tmax). Dense, as
+    `closest_reference`."""
+    return _dense_anyhit(tri, lists, counts, rays, t_min, 1)
 
 
 def closest_super_reference(tri, bounds, lists, counts, entries, rays,
@@ -381,27 +403,25 @@ def closest_super_reference(tri, bounds, lists, counts, entries, rays,
     too, as kernel A). Dense: the kernel's child refinement (`bounds`) and
     early exit (`entries`) are culls and are not repeated here. Children
     without triangles hold degenerate records that are never hit."""
-    return closest_reference(tri, lists, counts, entries, rays, t_min,
-                             group=SUPER)
+    return _dense_closest(tri, lists, counts, rays, t_min, SUPER)
 
 
 def anyhit_super_reference(tri, bounds, lists, counts, entries, rays,
                            t_min: float):
     """Plain version of kernel E: any hit in (t_min, tmax) over the children
     of the ray's tile's listed superclusters."""
-    return anyhit_reference(tri, lists, counts, entries, rays, t_min,
-                            group=SUPER)
+    return _dense_anyhit(tri, lists, counts, rays, t_min, SUPER)
 
 
 def _walk_model(tri, lists, counts, entries, rays, t_min: float,
                 early_exit: bool):
-    """Kernel A's walk, step by step: at step k every tile that is still
-    walking tests its k-th listed cluster against its 128 rays and keeps, per
-    ray, the smallest (t, index) pair. With `early_exit` a tile stops at the
+    """The instrumented kernels' walk (a ray a thread), step by step: at step
+    k every tile that is still walking tests its k-th listed cluster against
+    its 128 rays and keeps, per ray, the smallest (t, index) pair. With `early_exit` a tile stops at the
     first k whose entry lies beyond the max over its rays of min(best t, far)
     (a ray with a NaN there does not count, as in the kernel's `fmaxf`), else
     at its count. Returns (t, idx, walked): A's outputs and, per tile, the
-    number of clusters tested."""
+    number of clusters staged."""
     B = rays.shape[1]
     tiles = B // TILE
     dev = rays.device
@@ -443,34 +463,54 @@ def _walk_model(tri, lists, counts, entries, rays, t_min: float,
     return (best_t.reshape(B), torch.where(hit, best_i, -1).reshape(B), walked)
 
 
-def closest_dbg_reference(tri, lists, counts, entries, rays, t_min: float):
-    """Plain version of `closest_dbg_kernel`: kernel A's (t, idx) and, per
-    tile, `walked` (tiles,) int32: how many of its listed clusters the walk
-    tested before its early exit. The exit is tested before every cluster, so
-    the number is exact and at most `counts` (the TPU kernel tests every four
-    clusters, so its number is a multiple of four capped at the count)."""
+def closest_dbg_reference(tri, cmin, cmax, lists, counts, entries, rays,
+                          t_min: float):
+    """Plain version of `closest_dbg_kernel`, on kernel A's operands (the
+    boxes unread): A's (t, idx) and, per tile, `walked` (tiles,) int32: how
+    many of its listed clusters the walk staged before its early exit. The
+    exit is tested before every cluster, so the number is exact and at most
+    `counts` (the TPU kernel tests every four clusters, so its number is a
+    multiple of four capped at the count)."""
     return _walk_model(tri, lists, counts, entries, rays, t_min, True)
 
 
-def closest_full_reference(tri, lists, counts, entries, rays, t_min: float):
+def closest_full_reference(tri, cmin, cmax, lists, counts, entries, rays,
+                           t_min: float):
     """Plain version of `closest_full_kernel`: kernel A's (t, idx) from a walk
     that tests every listed cluster (no early exit)."""
     return _walk_model(tri, lists, counts, entries, rays, t_min, False)[:2]
 
 
-def refine_children(bounds, rays, limit) -> torch.Tensor:
-    """The child refinement of kernels D and E in plain PyTorch: (B, S, 16)
-    bool, True where ray b can meet child j of supercluster s within
-    `limit` (B,). One slab test per child with the cull's IEEE reciprocal,
-    inclusive comparisons widened by REFINE_REL / REFINE_ABS. Used by tests
-    (it must keep every child that holds a hit) and to count the work a
-    walk needs; the render path does not call it."""
+def _box_floor(t_min: float) -> float:
+    """The lower end of the box test's range: a hit needs t > t_min, so a box
+    the ray has left by t = 0 can hold one only when t_min < 0, and then no
+    box is ruled out from behind (`box_floor` in csrc/intersect_common.cuh)."""
+    return 0.0 if t_min >= 0.0 else -BIG
+
+
+def refine_children(bounds, rays, limit, t_min: float = 0.0) -> torch.Tensor:
+    """The box test of the walks (`box_meets` in csrc/intersect_common.cuh,
+    the child refinement of kernels D and E) in plain PyTorch: (B, S, W)
+    bool, True where ray b can meet box j of group s (bounds (S, 7, W):
+    min xyz, max xyz, live) within `limit` (B,). One slab test per box with
+    the cull's IEEE reciprocal against the box grown on every side by
+    REFINE_REL * (the largest |coordinate| of the ray's origin + that of the
+    box) + REFINE_ABS, which keeps the hits that the plane test reports for
+    rays grazing a triangle's plane; then entry <= exit, exit >
+    `_box_floor(t_min)` and entry <= limit, the two inclusive comparisons
+    widened by REFINE_REL * |x| + REFINE_ABS. Used by tests (it must keep
+    every box that holds a hit) and to count the work a walk needs; the
+    render path does not call it."""
+    omag = torch.fmax(torch.fmax(rays[0].abs(), rays[1].abs()), rays[2].abs())
+    # max |coordinate| of a box (lo <= hi): max over its axes of max(-lo, hi)
+    bmag = torch.maximum(-bounds[:, 0:3], bounds[:, 3:6]).amax(dim=1)
+    m = (REFINE_REL * (omag[:, None, None] + bmag[None]) + REFINE_ABS)
     tn = tf = None
     for a in range(3):
         oa = rays[a][:, None, None]
         inv = _safe_inverse(rays[3 + a])[:, None, None]
-        t0 = (bounds[None, :, a, :] - oa) * inv
-        t1 = (bounds[None, :, 3 + a, :] - oa) * inv
+        t0 = ((bounds[None, :, a, :] - m) - oa) * inv
+        t1 = ((bounds[None, :, 3 + a, :] + m) - oa) * inv
         lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
         tn = lo if tn is None else torch.maximum(tn, lo)
         tf = hi if tf is None else torch.minimum(tf, hi)
@@ -478,8 +518,19 @@ def refine_children(bounds, rays, limit) -> torch.Tensor:
     tf = tf.clamp(max=BIG)
     lim = limit[:, None, None]
     return ((bounds[None, :, 6, :] > 0.5)
-            & (tn <= tf + (REFINE_REL * tf.abs() + REFINE_ABS)) & (tf > 0.0)
-            & (tn <= lim + (REFINE_REL * lim + REFINE_ABS)))
+            & (tn <= tf + (REFINE_REL * tf.abs() + REFINE_ABS))
+            & (tf > _box_floor(t_min))
+            & (tn <= lim + (REFINE_REL * lim.abs() + REFINE_ABS)))
+
+
+def refine_clusters(cmin, cmax, rays, limit, t_min: float = 0.0) -> torch.Tensor:
+    """The flat walks' box test in plain PyTorch: (B, C) bool, True where
+    ray b can meet cluster c (boxes `cmin`, `cmax` (C, 3), live where min x
+    <= max x, as `stage_boxes` stages them) within `limit` (B,); the
+    arithmetic of `refine_children`."""
+    live = (cmin[:, 0] <= cmax[:, 0]).to(torch.float32)
+    bounds = torch.cat([cmin.t(), cmax.t(), live[None]])[None]   # (1, 7, C)
+    return refine_children(bounds, rays, limit, t_min)[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -487,46 +538,53 @@ def refine_children(bounds, rays, limit) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _check_walk_args(tri, lists, counts, entries, rays):
+def _check_walk_args(tri, cmin, cmax, lists, counts, entries, rays):
     C = tri.shape[0]
     B = rays.shape[1]
     if B % TILE:
         raise ValueError(f"ray batch {B} is not a multiple of {TILE}")
+    if C > CP:
+        raise ValueError(f"the flat walks take at most {CP} clusters, got {C}")
     if tri.data_ptr() % 16:
         raise ValueError("tri must be 16-byte aligned")
     cuda.require(tri, "tri", torch.float32, (C, COMP, CLUSTER_SIZE))
+    cuda.require(cmin, "cmin", torch.float32, (C, 3))
+    cuda.require(cmax, "cmax", torch.float32, (C, 3))
     cuda.require(lists, "lists", torch.int32, (B // TILE, C))
     cuda.require(counts, "counts", torch.int32, (B // TILE,))
     cuda.require(entries, "entries", torch.float32, (B // TILE, C))
     cuda.require(rays, "rays", torch.float32, (8, B))
 
 
-def closest_kernel(tri, lists, counts, entries, rays, t_min: float):
+def closest_kernel(tri, cmin, cmax, lists, counts, entries, rays, t_min: float):
     """Launch kernel A (csrc/intersect.cu). Same contract as
-    `closest_reference`; int32 lists/counts."""
-    _check_walk_args(tri, lists, counts, entries, rays)
+    `closest_reference`; int32 lists/counts, the (C, 3) cluster boxes of
+    the scene; any t_min."""
+    _check_walk_args(tri, cmin, cmax, lists, counts, entries, rays)
     B, C = rays.shape[1], tri.shape[0]
     t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
     i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
-    cuda.launch("closest", tri, lists, counts, entries, rays, B, C, float(t_min), t_out,
-                i_out)
+    cuda.launch("closest", tri, cmin, cmax, lists, counts, entries, rays, B, C, float(t_min),
+                REFINE_REL, REFINE_ABS, t_out, i_out)
     return t_out, i_out
 
 
-def anyhit_kernel(tri, lists, counts, entries, rays, t_min: float):
+def anyhit_kernel(tri, cmin, cmax, lists, counts, entries, rays, t_min: float):
     """Launch kernel B (csrc/intersect.cu). Same contract as
-    `anyhit_reference`; int32 lists/counts."""
-    _check_walk_args(tri, lists, counts, entries, rays)
+    `anyhit_reference`; operands as `closest_kernel`'s."""
+    _check_walk_args(tri, cmin, cmax, lists, counts, entries, rays)
     B, C = rays.shape[1], tri.shape[0]
     occ = torch.empty((B,), dtype=torch.uint8, device=rays.device)
-    cuda.launch("anyhit", tri, lists, counts, entries, rays, B, C, float(t_min), occ)
+    cuda.launch("anyhit", tri, cmin, cmax, lists, counts, entries, rays, B, C, float(t_min),
+                REFINE_REL, REFINE_ABS, occ)
     return occ.bool()
 
 
-def closest_dbg_kernel(tri, lists, counts, entries, rays, t_min: float):
-    """Launch the counting walk (csrc/intersect_stats.cu). Same contract as
-    `closest_dbg_reference`: kernel A's (t, idx) plus walked (tiles,) int32."""
-    _check_walk_args(tri, lists, counts, entries, rays)
+def closest_dbg_kernel(tri, cmin, cmax, lists, counts, entries, rays, t_min: float):
+    """Launch the counting walk (csrc/intersect_stats.cu) on kernel A's
+    operands, the boxes unread. Same contract as
+    `closest_dbg_reference`: A's (t, idx) plus walked (tiles,) int32."""
+    _check_walk_args(tri, cmin, cmax, lists, counts, entries, rays)
     B = rays.shape[1]
     t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
     i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
@@ -536,10 +594,10 @@ def closest_dbg_kernel(tri, lists, counts, entries, rays, t_min: float):
     return t_out, i_out, walked
 
 
-def closest_full_kernel(tri, lists, counts, entries, rays, t_min: float):
-    """Launch the walk without early exit (csrc/intersect_stats.cu). Same
-    contract as `closest_full_reference`."""
-    _check_walk_args(tri, lists, counts, entries, rays)
+def closest_full_kernel(tri, cmin, cmax, lists, counts, entries, rays, t_min: float):
+    """Launch the walk without early exit (csrc/intersect_stats.cu) on kernel
+    A's operands. Same contract as `closest_full_reference`."""
+    _check_walk_args(tri, cmin, cmax, lists, counts, entries, rays)
     B = rays.shape[1]
     t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
     i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
@@ -566,8 +624,7 @@ def _check_super_args(tri, bounds, lists, counts, entries, rays):
 
 
 def _check_t_min(t_min: float) -> None:
-    # kernels D and H order each ray's hits by the bits of t > t_min as
-    # unsigned integers, which holds for t_min >= 0 only
+    # kernels D and H take t_min >= 0 only (kernels A and F take any)
     if not t_min >= 0.0:
         raise ValueError(f"the two-level closest-hit kernels take t_min >= 0, got {t_min}")
 
@@ -614,14 +671,16 @@ def _fused_walk(tri, aabbs, rays, n_box: int):
 def fused_closest_reference(tri, aabbs, rays, t_min: float):
     """Plain version of kernel F: `_cull` on the packed boxes, then
     `closest_reference`. rays (8, B) = [o, d, tmax, unused]."""
-    return closest_reference(tri, *_fused_walk(tri, aabbs, rays, tri.shape[0]),
-                             t_min)
+    n = tri.shape[0]
+    return closest_reference(tri, *_unpack_aabbs(aabbs, n),
+                             *_fused_walk(tri, aabbs, rays, n), t_min)
 
 
 def fused_anyhit_reference(tri, aabbs, rays, t_min: float):
     """Plain version of kernel G: `_cull`, then `anyhit_reference`."""
-    return anyhit_reference(tri, *_fused_walk(tri, aabbs, rays, tri.shape[0]),
-                            t_min)
+    n = tri.shape[0]
+    return anyhit_reference(tri, *_unpack_aabbs(aabbs, n),
+                            *_fused_walk(tri, aabbs, rays, n), t_min)
 
 
 def fused_closest_super_reference(tri, bounds, aabbs, rays, t_min: float):
@@ -665,7 +724,8 @@ def fused_closest_kernel(tri, aabbs, rays, t_min: float):
     B = rays.shape[1]
     t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
     i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
-    cuda.launch("fused_closest", tri, aabbs, rays, B, n_box, float(t_min), t_out, i_out)
+    cuda.launch("fused_closest", tri, aabbs, rays, B, n_box, float(t_min), REFINE_REL,
+                REFINE_ABS, t_out, i_out)
     return t_out, i_out
 
 
@@ -675,7 +735,8 @@ def fused_anyhit_kernel(tri, aabbs, rays, t_min: float):
     n_box = _check_fused_args(tri, aabbs, rays)
     B = rays.shape[1]
     occ = torch.empty((B,), dtype=torch.uint8, device=rays.device)
-    cuda.launch("fused_anyhit", tri, aabbs, rays, B, n_box, float(t_min), occ)
+    cuda.launch("fused_anyhit", tri, aabbs, rays, B, n_box, float(t_min), REFINE_REL,
+                REFINE_ABS, occ)
     return occ.bool()
 
 
@@ -708,34 +769,34 @@ def fused_anyhit_super_kernel(tri, bounds, aabbs, rays, t_min: float):
 # ---------------------------------------------------------------------------
 
 
-def closest_hit(tri, lists, counts, entries, rays, t_min: float):
+def closest_hit(tri, cmin, cmax, lists, counts, entries, rays, t_min: float):
     """Kernel A for CUDA tensors, its plain version for CPU tensors."""
     if rays.is_cuda:
-        return closest_kernel(tri, lists, counts, entries, rays, t_min)
-    return closest_reference(tri, lists, counts, entries, rays, t_min)
+        return closest_kernel(tri, cmin, cmax, lists, counts, entries, rays, t_min)
+    return closest_reference(tri, cmin, cmax, lists, counts, entries, rays, t_min)
 
 
-def any_hit(tri, lists, counts, entries, rays, t_min: float):
+def any_hit(tri, cmin, cmax, lists, counts, entries, rays, t_min: float):
     """Kernel B for CUDA tensors, its plain version for CPU tensors."""
     if rays.is_cuda:
-        return anyhit_kernel(tri, lists, counts, entries, rays, t_min)
-    return anyhit_reference(tri, lists, counts, entries, rays, t_min)
+        return anyhit_kernel(tri, cmin, cmax, lists, counts, entries, rays, t_min)
+    return anyhit_reference(tri, cmin, cmax, lists, counts, entries, rays, t_min)
 
 
-def closest_dbg_hit(tri, lists, counts, entries, rays, t_min: float):
+def closest_dbg_hit(tri, cmin, cmax, lists, counts, entries, rays, t_min: float):
     """The counting walk's kernel for CUDA tensors, its plain version for CPU
     tensors."""
     if rays.is_cuda:
-        return closest_dbg_kernel(tri, lists, counts, entries, rays, t_min)
-    return closest_dbg_reference(tri, lists, counts, entries, rays, t_min)
+        return closest_dbg_kernel(tri, cmin, cmax, lists, counts, entries, rays, t_min)
+    return closest_dbg_reference(tri, cmin, cmax, lists, counts, entries, rays, t_min)
 
 
-def closest_full_hit(tri, lists, counts, entries, rays, t_min: float):
+def closest_full_hit(tri, cmin, cmax, lists, counts, entries, rays, t_min: float):
     """The full walk's kernel for CUDA tensors, its plain version for CPU
     tensors."""
     if rays.is_cuda:
-        return closest_full_kernel(tri, lists, counts, entries, rays, t_min)
-    return closest_full_reference(tri, lists, counts, entries, rays, t_min)
+        return closest_full_kernel(tri, cmin, cmax, lists, counts, entries, rays, t_min)
+    return closest_full_reference(tri, cmin, cmax, lists, counts, entries, rays, t_min)
 
 
 def closest_super_hit(tri, bounds, lists, counts, entries, rays, t_min: float):
@@ -796,13 +857,14 @@ def _prep(scene, o: V3, d: V3, t_min: float, t_max, anyhit: bool,
     mega hit), cull and pack. Returns the walk's operands plus what the
     caller merges. With more than SUPER_MIN_C clusters the cull runs on the
     superclusters and the walk's operands are those of kernels D and E
-    (`pack_bounds` second); else those of kernels A and B. With `fused` there
-    is no cull here: the operands are those of kernels F and G, or H and I
-    (the packed box table in place of lists, counts and entries; the rays'
-    `far` row is zero and unread). With `cull_kernel` the operands are the
-    list walks' and the lists come from `cull_lists` (kernel K) on the packed
-    box table in place of `_cull`; more than 128 boxes raise `ValueError`, as
-    does asking for both."""
+    (`pack_bounds` second); else those of kernels A and B (the cluster boxes
+    `cluster_min` and `cluster_max` second and third). With `fused` there is no cull here: the
+    operands are those of kernels F and G, or H and I (the packed box table
+    in place of lists, counts and entries; the rays' `far` row is zero and
+    unread). With `cull_kernel` the operands are the list walks' and the
+    lists come from `cull_lists` (kernel K) on the packed box table in place
+    of `_cull`; more than 128 boxes raise `ValueError`, as does asking for
+    both."""
     if fused and cull_kernel:
         raise ValueError("FUSED_CULL and CULL_KERNEL are two routes of one "
                          "search: set at most one")
@@ -831,9 +893,11 @@ def _prep(scene, o: V3, d: V3, t_min: float, t_max, anyhit: bool,
     if use_super:
         boxes = (scene.super_min, scene.super_max)
         packed = (pack_tris(scene), pack_bounds(scene))
+        head = packed      # the list walks' operands before the lists
     else:
         boxes = (scene.cluster_min, scene.cluster_max)
         packed = (pack_tris(scene),)
+        head = (*packed, *boxes)
     if fused:
         rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z, t_max_k,
                             torch.zeros_like(t_max_k)])
@@ -844,25 +908,30 @@ def _prep(scene, o: V3, d: V3, t_min: float, t_max, anyhit: bool,
         lists, counts, entries, far = cull_lists(pack_aabbs(*boxes), rays,
                                                  boxes[0].shape[0])
         rays[7] = far
-        walk = (*packed, lists, counts, entries, rays)
+        walk = (*head, lists, counts, entries, rays)
     else:
         lists, counts, entries, far = _cull(o, d, t_max_k, *boxes)
         rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z, t_max_k, far])
-        walk = (*packed, lists.to(torch.int32), counts.to(torch.int32),
+        walk = (*head, lists.to(torch.int32), counts.to(torch.int32),
                 entries.contiguous(), rays)
     return walk, B, t_max_arr, mega_t[:B], mega_idx[:B]
 
 
 def _is_super(walk) -> bool:
-    """Whether `_prep` made the two-level walk's operands: (tri, bounds,
-    lists, counts, entries, rays) or, fused, (tri, bounds, aabbs, rays);
-    the flat walk's have no bounds."""
-    return len(walk) in (4, 6)
+    """Whether `_prep` made the two-level walk's operands, read from the
+    second operand's shape: the child bounds (S, 7, 16) of (tri, bounds,
+    lists, counts, entries, rays) or, fused, (tri, bounds, aabbs, rays); the
+    flat walks' second operand is two-dimensional, the cluster boxes' minima
+    (C, 3) of (tri, cmin, cmax, lists, counts, entries, rays) or, fused, the
+    (8, CP) box table of (tri, aabbs, rays)."""
+    return walk[1].dim() == 3
 
 
 def _is_fused(walk) -> bool:
-    """Whether `_prep` made the fused kernels' operands."""
-    return len(walk) in (3, 4)
+    """Whether `_prep` made the fused kernels' operands: they hold no lists,
+    counts and entries, so three or four operands where the list walks have
+    six or seven."""
+    return len(walk) < 6
 
 
 def _searches(walk):

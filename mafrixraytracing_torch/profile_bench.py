@@ -10,8 +10,10 @@ BENCH_FIT=1) one whole train step of `opt.inverse` at 8 spp as
 `bench.run_fit` times it. For each it prints the wall
 time, the device-busy time (the sum of kernel durations on the card), the
 idle share, the number of kernel launches, the kernels with the most
-device time, and the scatter-add's (J's) wrapper launches and the device
-time of its two passes (its sort is not told apart from the others'). With
+device time, the scatter-add's (J's) wrapper launches and the device
+time of its two passes (its sort is not told apart from the others'), and
+the device time and launches of each search kernel that ran (A, B, D-I, K,
+by the kernel's function name). With
 TRACE_DIR, it also writes Chrome traces there. `--fused` (or BENCH_FUSED=1)
 profiles the fused-cull searches (`ops.intersect.FUSED_CULL`), `--cull-kernel`
 (or BENCH_CULL_KERNEL=1) the list walks fed by the cull kernel
@@ -20,6 +22,7 @@ profiles the fused-cull searches (`ops.intersect.FUSED_CULL`), `--cull-kernel`
 from __future__ import annotations
 
 import os
+import re
 import sys
 import time
 
@@ -36,6 +39,12 @@ from mafrixraytracing_torch.scene.compiler import compile_scene
 W = H = 256
 SPP = 64
 DEPTH = 5
+# the search kernels by their CUDA function names (ops/intersect.py)
+SEARCH_KERNELS = {"closest_kernel": "A", "anyhit_kernel": "B",
+                  "closest_super_kernel": "D", "anyhit_super_kernel": "E",
+                  "fused_closest_kernel": "F", "fused_anyhit_kernel": "G",
+                  "fused_closest_super_kernel": "H", "fused_anyhit_super_kernel": "I",
+                  "cull_kernel": "K"}
 
 
 def _device_us(evt) -> float:
@@ -59,11 +68,22 @@ def _report(label: str, prof, wall_s: float, top: int = 15) -> None:
     for name, (us, n) in rows:
         print(f"  {us / 1e3:10.3f} ms {100 * us / max(busy_us, 1):5.1f}% "
               f"{n:7d}x  {name[:90]}")
-    j = [v for name, v in by_name.items()
-         if "scatter_chunk" in name or "scatter_combine" in name]
-    j_us, j_n = sum(us for us, _ in j), sum(n for _, n in j)
+    j_us, j_n = _summed(by_name, r"scatter_chunk|scatter_combine")
     print(f"  J (scatter-add): {cuda.LAUNCHES['scatter']} wrapper launches, "
           f"{j_n} pass kernels, {j_us / 1e3:.3f} ms device time in its passes")
+    searches = []
+    for fn, letter in SEARCH_KERNELS.items():
+        us, n = _summed(by_name, rf"\b{fn}\(")
+        if n:
+            searches.append(f"{letter} {us / 1e3:.3f} ms in {n}")
+    if searches:
+        print("  search kernels (device time, launches): " + ", ".join(searches))
+
+
+def _summed(by_name: dict, pattern: str) -> tuple:
+    """(device us, launches) of the kernels whose name matches `pattern`."""
+    found = [v for name, v in by_name.items() if re.search(pattern, name)]
+    return sum(us for us, _ in found), sum(n for _, n in found)
 
 
 def profile_scene(spec=None, trace_dir=None, fit=False) -> None:

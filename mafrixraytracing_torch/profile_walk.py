@@ -154,7 +154,7 @@ def profile_wavefront(scene, o: V3, d: V3, t_max, label: str, reps: int) -> dict
     if oi._is_super(walk):
         raise ValueError(f"profile_walk needs a flat scene: {scene.cluster_min.shape[0]} "
                          f"clusters take the two-level path")
-    tri, lists, counts, entries, rays = walk
+    lists, counts, rays = walk[-4], walk[-3], walk[-1]
     aabbs, rays7 = fwalk[-2], fwalk[-1]
     n_box = lists.shape[1]
     cull_p = oi.cull_reference(aabbs, rays7, n_box)

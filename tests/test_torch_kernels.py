@@ -240,7 +240,7 @@ def test_kernels_match_plain_versions(card, name, n):
     tk, ik = oi.closest_kernel(*walk, T_MIN)
     tp, ip = oi.closest_reference(*walk, T_MIN)
     assert torch.equal(ik, ip)
-    torch.testing.assert_close(tk, tp, rtol=1e-4, atol=1e-5)
+    assert torch.equal(tk, tp)      # A is built to agree bit for bit
     walk, *_ = oi._prep(ts, o, d, T_MIN, t_max * 0.4, anyhit=True)
     assert torch.equal(oi.anyhit_kernel(*walk, T_MIN),
                        oi.anyhit_reference(*walk, T_MIN))
@@ -467,7 +467,7 @@ def test_walk_stats_kernels_match_kernel_a_and_plain_versions(card, name, n):
     tp, ip, wp = oi.closest_dbg_reference(*walk, T_MIN)
     assert torch.equal(tp, ta) and torch.equal(ip, ia)
     assert walked.dtype == torch.int32 and torch.equal(walked, wp)
-    assert (walked <= walk[2]).all()
+    assert (walked <= walk[-3]).all()
     tq, iq = oi.closest_full_reference(*walk, T_MIN)
     assert torch.equal(tq, ta) and torch.equal(iq, ia)
     if name == "soup":      # unrelated rays: nearly every listed cluster is walked
@@ -1008,6 +1008,210 @@ def test_closest_super_kernel_on_hand_built_inputs(card, monkeypatch, name):
     assert torch.equal(t.cpu(), t_want) and torch.equal(i.cpu(), i_want)
     tf, i_f = oi.fused_closest_super_kernel(*fwalk, T_MIN)
     assert torch.equal(tf, t) and torch.equal(i_f, i)
+
+
+# --- the flat walks (A, B, F, G) on hand-built inputs -----------------------
+
+FLAT_CASES = CLOSEST_CASES + ["widening", "grazing", "flat_quad", "flat_quad_oblique",
+                              "negative_t_min"]
+
+# NEE shadow rays of a Cornell wavefront (o, d, tmax after the mega test) that
+# start a few 1e-5 above the plane of the light and cross it at a grazing
+# angle: the plane test's t (numerator cancelling at the scale of the
+# coordinates) lies ~1e-3 before the slab test's entry into the cluster's box
+# and before tmax, so the plain version finds the light where a box test
+# widened only relative to t does not enter the box.
+GRAZING = [
+    (0.9991334676742554, 1.980046272277832, -0.7189832329750061, -0.8665096163749695,
+     -3.729339368874207e-05, 0.4991602599620819, 1.2382519245147705),
+    (-0.9991319179534912, 1.9800630807876587, 0.6230401396751404, 0.8680808544158936,
+     -6.785901496186852e-05, -0.49642279744148254, 0.9290615916252136),
+    (0.22592441737651825, 1.980096697807312, -0.9990527629852295, -0.3205081820487976,
+     -9.132928244071081e-05, 0.9472457766532898, 1.0578784942626953),
+    (-0.9990018606185913, 1.98011314868927, -0.11836139857769012, 0.9981546998023987,
+     -9.374127694172785e-05, -0.060722727328538895, 1.2060998678207397),
+    (0.6900237202644348, 1.9800310134887695, -0.9992057681083679, -0.607640266418457,
+     -2.175340341636911e-05, 0.7942124009132385, 1.4228076934814453)]
+
+
+def flat_quad_scene(device):
+    """A 1 x 1 quad at y = 0 (one cluster of zero thickness in y) over a
+    20 x 20 ground at y = -5 that becomes a mega triangle: the scene of
+    tests/test_pallas.py:101-124 in the port."""
+    floor = S.make_rect_mesh((-10.0, -5.0, -10.0), (10.0, -5.0, -10.0),
+                             (10.0, -5.0, 10.0), (-10.0, -5.0, 10.0))
+    quad = S.make_rect_mesh((-0.5, 0.0, -0.5), (0.5, 0.0, -0.5),
+                            (0.5, 0.0, 0.5), (-0.5, 0.0, 0.5))
+    spec = S.SceneSpec(shapes=[S.ShapeSpec(mesh=quad, material=0),
+                               S.ShapeSpec(mesh=floor, material=0)])
+    scene = compile_scene(spec, device=device).scene
+    assert scene.num_mega >= 2 and scene.cluster_min.shape[0] == 1
+    return scene
+
+
+def flat_case(name, device):
+    """(scene, o, d, t_max, t_min, dead tile) of one hand-built input of the
+    flat walks. The names of CLOSEST_CASES are D's inputs (`closest_case`),
+    whose at most 128 clusters take the flat path as they are. widening: the
+    triangle of corner (0, 0, 5) in cluster 1 and again in cluster 3, whose
+    second triangle (corner (-3, -3, 1)) puts its box nearer, so the tile
+    lists 3 before 1; 128 oblique rays from z = 0 hit both copies at the same
+    t, and cluster 1 (the smaller index) must win; its box's entry, 5 times
+    the reciprocal of dz, lies one rounding above t = 5 / dz for some rays,
+    whose box test against the best from cluster 3 passes only by the
+    widening. grazing: Cornell with the GRAZING rays and 123 rays from inside
+    its cluster's box, which list the cluster for the tile. flat_quad and
+    flat_quad_oblique: `flat_quad_scene` under
+    vertical rays and under oblique rays aimed through the quad, as
+    tests/test_pallas.py:126 and :142. negative_t_min (t_min = -3): rays
+    0-63 from z = 0 meet cluster 0 (z = 5) ahead, rays 64-126 start at z = 7,
+    between cluster 0 behind them (t = -2) and cluster 1 (z = 9) ahead, and
+    ray 127 starts in cluster 0's plane and runs along -z (a hit at t = -0,
+    cluster 1 at t = -4 beyond t_min)."""
+    rs = np.random.default_rng(len(name) + 100)
+    t_min = T_MIN
+    if name in CLOSEST_CASES:
+        scene, o, d, t_max, dead_tile, _, _ = closest_case(name, device)
+        return scene, o, d, t_max, t_min, dead_tile
+    if name == "widening":
+        corners = np.asarray([(50.0 + 3.0 * c, 50.0, 5.0) for c in range(16)] * 2,
+                             np.float32).reshape(2, 16, 3).transpose(1, 0, 2).copy()
+        corners[1] = [(0.0, 0.0, 5.0), (0.0, 0.0, 5.0)]
+        corners[3] = [(0.0, 0.0, 5.0), (-3.0, -3.0, 1.0)]
+        scene = hand_scene(corners, device)
+        xy = rs.uniform(0.05, 0.4, (oi.TILE, 2))
+        dxy = rs.uniform(-0.1, 0.1, (oi.TILE, 2))
+        dirs = np.concatenate([dxy, np.ones((oi.TILE, 1))], 1)
+        dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+        org = np.concatenate([xy - 5.0 * dirs[:, :2] / dirs[:, 2:],
+                              np.zeros((oi.TILE, 1))], 1)
+        to = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+        return (scene, V3.of(to(org)), V3.of(to(dirs)), to(np.full(oi.TILE, 100.0)),
+                t_min, False)
+    if name == "grazing":
+        scene = compile_scene(builtin.cornell_box(16, 16), device=device).scene
+        o, d, t_max = rays(oi.TILE - len(GRAZING), (0.0, 1.0, 0.0), seed=3, device=device,
+                           dead_frac=0.0)
+        g = torch.as_tensor(np.asarray(GRAZING, np.float32), device=device)
+        cat = lambda v, k: torch.cat([g[:, k], v])  # noqa: E731
+        return (scene, V3(cat(o.x, 0), cat(o.y, 1), cat(o.z, 2)),
+                V3(cat(d.x, 3), cat(d.y, 4), cat(d.z, 5)), cat(t_max, 6), t_min, False)
+    if name in ("flat_quad", "flat_quad_oblique"):
+        scene = flat_quad_scene(device)
+        n = 256
+        xz = rs.uniform(-0.45, 0.45, (n, 2))
+        if name == "flat_quad":
+            dirs = np.tile([0.0, -1.0, 0.0], (n, 1))
+            org = np.stack([xz[:, 0], np.full(n, 2.0), xz[:, 1]], 1)
+        else:
+            d1 = np.asarray([0.3, -1.0, 0.2]) / np.linalg.norm([0.3, -1.0, 0.2])
+            dirs = np.tile(d1, (n, 1))
+            t_plane = 2.0 / -d1[1]
+            org = np.stack([xz[:, 0] * 0.66 - d1[0] * t_plane, np.full(n, 2.0),
+                            xz[:, 1] * 0.66 - d1[2] * t_plane], 1)
+        to = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+        return scene, V3.of(to(org)), V3.of(to(dirs)), to(np.full(n, 1e8)), t_min, False
+    # negative_t_min
+    scene = hand_scene([(0.0, 0.0, 5.0), (0.0, 0.0, 9.0)]
+                       + [(50.0 + 3.0 * c, 50.0, 5.0) for c in range(14)], device)
+    xy = rs.uniform(0.05, 0.45, (oi.TILE, 2))
+    o, d, t_max = _along_z(xy, np.full(oi.TILE, 100.0), device)
+    o.z[64:] = 7.0
+    o.z[127] = 5.0
+    d.z[127] = -1.0
+    return scene, o, d, t_max, -3.0, False
+
+
+def flat_walks(scene, o, d, t_max, t_min, anyhit, dead_tile):
+    """The flat walks' operands for one input (`_prep`, list and fused); with
+    `dead_tile`, the dead second tile lists every cluster."""
+    walk, *_ = oi._prep(scene, o, d, t_min, t_max, anyhit=anyhit)
+    fwalk, *_ = oi._prep(scene, o, d, t_min, t_max, anyhit=anyhit, fused=True)
+    assert not oi._is_super(walk) and not oi._is_fused(walk)
+    assert oi._is_fused(fwalk) and not oi._is_super(fwalk)
+    if dead_tile:
+        *head, lists, counts, entries, rays = walk
+        C = lists.shape[1]
+        lists, counts, entries = lists.clone(), counts.clone(), entries.clone()
+        lists[1] = torch.arange(C, dtype=torch.int32, device=lists.device)
+        counts[1] = C
+        entries[1] = 0.0
+        walk = (*head, lists, counts, entries, rays)
+    return walk, fwalk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FLAT_CASES)
+def test_flat_kernels_on_hand_built_inputs(card, name):
+    """A and B `torch.equal` to their plain versions, F and G to A and B, and
+    the instrumented walks (M) to A, on the hand-built inputs of the flat
+    walks: 128 rays that each ask for another cluster, every lane hitting
+    every ray of one cluster, equal t in two clusters, the nearest cluster
+    last, a hit at exactly tmax, a NaN ray, a dead tile that lists every
+    cluster, a box test that passes only by its widening, a flat cluster hit
+    straight on and obliquely, a negative t_min; any hit at tmax and just
+    beyond each ray's closest hit."""
+    scene, o, d, t_max, t_min, dead_tile = flat_case(name, card)
+    walk, fwalk = flat_walks(scene, o, d, t_max, t_min, False, dead_tile)
+    t, i = oi.closest_kernel(*walk, t_min)
+    torch.cuda.synchronize()
+    tp, ip = oi.closest_reference(*walk, t_min)
+    assert torch.equal(t, tp) and torch.equal(i, ip)
+    tf, i_f = oi.fused_closest_kernel(*fwalk, t_min)
+    assert torch.equal(tf, t) and torch.equal(i_f, i)
+    td, id_, walked = oi.closest_dbg_kernel(*walk, t_min)
+    assert torch.equal(td, t) and torch.equal(id_, i)
+    assert torch.equal(walked, oi.closest_dbg_reference(*walk, t_min)[2])
+    n = o.x.shape[0]
+    t_near = torch.where(i[:n] >= 0, t[:n].abs() * 1.01 + 1e-3, t_max)
+    for t_far in (t_max, t_near):
+        walk, fwalk = flat_walks(scene, o, d, t_far, t_min, True, dead_tile)
+        occ = oi.anyhit_kernel(*walk, t_min)
+        torch.cuda.synchronize()
+        assert torch.equal(occ, oi.anyhit_reference(*walk, t_min))
+        assert torch.equal(oi.fused_anyhit_kernel(*fwalk, t_min), occ)
+
+
+@pytest.mark.cuda
+def test_two_level_anyhit_kernels_take_a_negative_t_min(card, monkeypatch):
+    """E and I on the negative_t_min input as one supercluster: the hits
+    behind the origin count, so their exit does not read the cull's far; E
+    equal to its plain version, I to E."""
+    monkeypatch.setattr(oi, "SUPER_MIN_C", 0)
+    scene, o, d, t_max, t_min, _ = flat_case("negative_t_min", card)
+    walk, *_ = oi._prep(scene, o, d, t_min, t_max, anyhit=True)
+    fwalk, *_ = oi._prep(scene, o, d, t_min, t_max, anyhit=True, fused=True)
+    assert oi._is_super(walk) and oi._is_super(fwalk)
+    occ = oi.anyhit_super_kernel(*walk, t_min)
+    torch.cuda.synchronize()
+    want = oi.anyhit_super_reference(*walk, t_min)
+    assert torch.equal(occ, want) and want.all()
+    assert torch.equal(oi.fused_anyhit_super_kernel(*fwalk, t_min), occ)
+
+
+@pytest.mark.cuda
+def test_two_level_kernels_keep_grazing_hits(card, monkeypatch):
+    """D, E, H and I on the grazing input as one supercluster: the rays that
+    graze the light's plane keep their hit (the child refinement's margin),
+    D and E `torch.equal` to their plain versions, H to D and I to E."""
+    monkeypatch.setattr(oi, "SUPER_MIN_C", 0)
+    scene, o, d, t_max, t_min, _ = flat_case("grazing", card)
+    walk, *_ = oi._prep(scene, o, d, t_min, t_max, anyhit=False)
+    fwalk, *_ = oi._prep(scene, o, d, t_min, t_max, anyhit=False, fused=True)
+    assert oi._is_super(walk) and oi._is_super(fwalk)
+    t, i = oi.closest_super_kernel(*walk, t_min)
+    torch.cuda.synchronize()
+    tp, ip = oi.closest_super_reference(*walk, t_min)
+    assert torch.equal(t, tp) and torch.equal(i, ip) and (ip[:5] >= 0).all()
+    th, ih = oi.fused_closest_super_kernel(*fwalk, t_min)
+    assert torch.equal(th, t) and torch.equal(ih, i)
+    walk, *_ = oi._prep(scene, o, d, t_min, t_max, anyhit=True)
+    fwalk, *_ = oi._prep(scene, o, d, t_min, t_max, anyhit=True, fused=True)
+    occ = oi.anyhit_super_kernel(*walk, t_min)
+    torch.cuda.synchronize()
+    want = oi.anyhit_super_reference(*walk, t_min)
+    assert torch.equal(occ, want) and want[:5].all()
+    assert torch.equal(oi.fused_anyhit_super_kernel(*fwalk, t_min), occ)
 
 
 @pytest.mark.cuda

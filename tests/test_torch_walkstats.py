@@ -76,8 +76,8 @@ def test_dbg_and_full_equal_closest_and_match_jax(soup, tiles, seed):
     assert torch.equal(td_, ta) and torch.equal(id_, ia)
     assert torch.equal(tf, ta) and torch.equal(if_, ia)
     assert walked.dtype == torch.int32 and walked.shape == (tiles,)
-    assert (walked <= walk[2]).all()
-    assert (walked < walk[2]).any(), "the early exit never fired on coherent tiles"
+    assert (walked <= walk[-3]).all()
+    assert (walked < walk[-3]).any(), "the early exit never fired on coherent tiles"
     (jo, jd), _ = both_v3(o, d)
     t_j, i_j = ip.find_closest_soa(js, jo, jd, T_MIN, jnp.asarray(t_max),
                                    interpret=True)
@@ -92,14 +92,14 @@ def independent_walked(walk):
     """walked[tile] from dense searches: after the first k listed clusters the
     tile's limit is max over its rays of min(best t, far); the walk stops at
     the first k whose entry lies beyond it."""
-    tri, lists, counts, entries, rays = walk
+    *head, lists, counts, entries, rays = walk
     tiles = lists.shape[0]
     far = rays[7].reshape(tiles, ti.TILE).numpy()
     out = counts.numpy().copy()
     done = np.zeros(tiles, bool)
     for k in range(int(counts.max())):
-        t_k, _ = ti.closest_reference(tri, lists, counts.clamp(max=k), entries, rays,
-                                      T_MIN)          # tmax on a miss
+        t_k, _ = ti.closest_reference(*head, lists, counts.clamp(max=k), entries,
+                                      rays, T_MIN)          # tmax on a miss
         worst = np.fmin(t_k.reshape(tiles, ti.TILE).numpy(), far).max(axis=1)
         stop = ~done & (k < counts.numpy()) & ~(entries[:, k].numpy() <= worst)
         out[stop] = k
@@ -125,11 +125,11 @@ def test_dead_tile_walks_nothing_and_unsorted_rays_walk_more(soup):
     o[128:256] += 100.0
     walk = walk_of(ts, o, d, t_max)
     t, i, walked = ti.closest_dbg_reference(*walk, T_MIN)
-    assert walk[2][1] == 0 and walked[1] == 0 and (i[128:256] == -1).all()
+    assert walk[-3][1] == 0 and walked[1] == 0 and (i[128:256] == -1).all()
     # the same rays shuffled across tiles: longer lists, at least as many walked
     perm = np.random.default_rng(0).permutation(384)
     mixed = walk_of(ts, o[perm], d[perm], t_max[perm])
-    assert mixed[2].sum() > walk[2].sum()
+    assert mixed[-3].sum() > walk[-3].sum()
     assert ti.closest_dbg_reference(*mixed, T_MIN)[2].sum() >= walked.sum()
 
 
