@@ -51,19 +51,22 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    pass 1, pass 2) each timed alone. The fused-cull searches (fused_closest,
    fused_anyhit on Cornell and the soup; fused_closest_super,
    fused_anyhit_super on the mesh) on the rays of every walk above: bit-equal
-   to their plain versions and to the list kernels fed by the PyTorch cull,
-   each one's time beside the time of the cull with its conversions plus the
-   list kernel on the same rays. The cull kernel (cull) on the rays of every
-   walk above: lists, counts, entries and far `torch.equal` to its plain
-   version (`cull_reference`) and to what `_prep` got from the PyTorch cull,
-   with its time, the PyTorch cull's and its bound. The instrumented walks
+   to their plain versions and to the list kernels, each one's time beside
+   the time of the cull kernel plus the list kernel on the same rays. The
+   cull kernel (cull, the cull of `_prep` on the card) on the rays and boxes
+   of every walk above: lists, counts, entries and far `torch.equal` to its
+   plain version (`cull_reference`), to the operands of the PyTorch cull
+   (`_cull`) and to `_prep`'s, with its time by events and on the device, the
+   PyTorch cull's and its bound. The instrumented walks
    (closest_dbg, closest_full) on Cornell and on the soup: `(t, idx)` bit-equal
    to closest's and to their step-by-step plain versions', `walked` equal to
    the plain version's and never above the count.
 3. Forward, Cornell: 256x256, 64 spp, depth 5, NEE + MIS + Russian roulette,
    compaction calibrated from `trace_stats` as the benchmark does. The image
    must be finite with a sane mean, the launch counts of closest, anyhit and
-   unpack must be > 0, a PNG goes to the temp directory, and a 64x64 render
+   unpack must be > 0, the cull kernel launched once a query (80 times, as
+   often as closest and anyhit together) and the PyTorch cull never, a PNG
+   goes to the temp directory, and a 64x64 render
    through the kernels must match the same render through the plain
    versions.
 4. Forward + backward, Cornell: the benchmark's timed gradient of the mean
@@ -71,9 +74,10 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    the albedo and radiance gradients non-zero. Prints the benchmark's JSON
    line.
 5. Forward, mesh: the same as 3 on the 36,996-face mesh scene; the launch
-   counts of closest_super, anyhit_super and unpack must be > 0 and those of
-   closest and anyhit 0. Also a 64x64 render with a checker texture on the
-   mesh, finite and different from the untextured one.
+   counts of closest_super, anyhit_super and unpack must be > 0, those of
+   closest and anyhit 0, and the cull kernel's 80 as in 3. Also a 64x64
+   render with a checker texture on the mesh, finite and different from the
+   untextured one.
 6. Forward + backward, mesh: the same as 4 on the mesh scene, with the peak
    device memory.
 7. Fit: `opt.inverse.fit` on the mesh scene at 256x256, 8 spp a step (one
@@ -94,28 +98,23 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
 8. The fused-cull search at full width (`ops.intersect.FUSED_CULL` patched
    on): the forward frames of 3 and 5 again, each `torch.equal` to the list
    path's image, with the launch counts of the fused kernels > 0 and those of
-   the list kernels 0; forward + backward on the mesh through the benchmark's
-   path, gradients bit-equal to the list path's at the same seed; s/frame and
-   kernel launches per frame of both paths, taken in turns (list, fused,
-   fused, list).
+   the list kernels and the cull kernel 0, the PyTorch cull never called;
+   forward + backward on the mesh through the benchmark's path, gradients
+   bit-equal to the list path's at the same seed; s/frame and kernel
+   launches per frame of both paths, taken in turns (list, fused, fused,
+   list).
 9. The other entry points: a 128x128 Whitted render of Cornell with the
    fused search (finite, two renders bit-equal, a PNG to the temp directory),
    a 64x64 motion-blur render of a moving sphere (finite, the flag changes
    the picture), and the native OBJ loader on the mesh's OBJ file, equal to
    the Python parser's arrays, with both parse times.
-
-10. The cull-kernel route at full width (`ops.intersect.CULL_KERNEL` patched
-   on): as 8, with the list walks fed by the cull kernel: the frames of 3 and
-   5 and the mesh's forward + backward `torch.equal` to the default path's,
-   cull launched 80 times a frame and the PyTorch cull not once, s/frame and
-   launches a frame in turns (default, route, route, default).
-11. The walk profile: `profile_walk.main()` at B = 524,288 on a seeded sphere
+10. The walk profile: `profile_walk.main()` at B = 524,288 on a seeded sphere
    of 15,488 faces (at most 128 clusters): listed and walked clusters a tile
    on the primary and the sorted bounce-1 wavefront, the five times, the
    cull kernel equal to the PyTorch cull and both instrumented walks equal to
    closest; its JSON line. The only path that launches closest_dbg and
    closest_full.
-12. The multi-process path on the one card: `launch.init` with a file store
+11. The multi-process path on the one card: `launch.init` with a file store
    brings up an NCCL group of one rank; `render_image_sharded` on the mesh
    scene at 256x256 x 64 spp, on a mesh of one rank without a group and on
    the NCCL group's mesh, `torch.equal` to the unsharded `render_flat_pixels`
@@ -136,11 +135,14 @@ primary and sorted bounce-1 wavefronts of the walk profile's sphere, with
 their bounds and flat fan-outs, reached through `_prep` and `_searches`
 (`time_flat_walks`); the gather and the two-level walks (D beside H, E
 beside I) on the mesh's queries of phase 2 (`time_walks`), with D's
-fan-out; and the scatter-add (J) on the mesh's and Cornell's primary-hit
-rows, one row and the light rows of 8 and 2 lights, with its parts; one
-JSON line tagged LABEL. It saves hashes of A's and B's outputs, D's and E's
-outputs and hashes of C's and J's in OUT_DIR or compares them with a run's
-saved there (a difference fails the run). To compare two checkouts on one
+fan-out; the cull kernel (K) on the rays and boxes of every one of those
+queries, by events and on the device, with its bound (`time_cull`: it calls
+K through the interface of the checkout it runs in); and the scatter-add
+(J) on the mesh's and Cornell's primary-hit rows, one row and the light
+rows of 8 and 2 lights, with its parts; one JSON line tagged LABEL. It saves
+hashes of A's, B's and K's outputs, D's and E's outputs and hashes of C's
+and J's in OUT_DIR or compares them with a run's saved there (a difference
+fails the run). To compare two checkouts on one
 card, copy this script into the other one's root and run the two in turns
 (parent, change, change, parent) with the same OUT_DIR.
 
@@ -245,21 +247,27 @@ def run_once_ms(fn):
 
 
 @contextmanager
-def route(flag, on=True):
-    """Patch `ops.intersect.FUSED_CULL` or `.CULL_KERNEL` (`flag`) for the
-    block."""
+def fused_cull(on=True):
+    """Patch `ops.intersect.FUSED_CULL` for the block."""
     from mafrixraytracing_torch.ops import intersect as oi
 
-    before = getattr(oi, flag)
-    setattr(oi, flag, on)
+    before = oi.FUSED_CULL
+    oi.FUSED_CULL = on
     try:
         yield
     finally:
-        setattr(oi, flag, before)
+        oi.FUSED_CULL = before
 
 
-def fused_cull(on=True):
-    return route("FUSED_CULL", on)
+@contextmanager
+def counting_pytorch_cull(calls):
+    """Append the box count of every call of the PyTorch cull (`_cull`) to
+    `calls` for the block."""
+    from mafrixraytracing_torch.ops import intersect as oi
+
+    real = oi._cull
+    with mock.patch.object(oi, "_cull", lambda *a: calls.append(a[3].shape[0]) or real(*a)):
+        yield
 
 
 @contextmanager
@@ -581,70 +589,91 @@ def compare_anyhit(walk, t_min, label, same_as=None):
     return float(diff > 0), ok_, plain_ms
 
 
+def cull_boxes(scene, walk):
+    """The boxes the cull of a list walk's operands took: the superclusters'
+    on the two-level path, the clusters' on the flat one."""
+    from mafrixraytracing_torch.ops import intersect as oi
+
+    return ((scene.super_min, scene.super_max) if oi._is_super(walk)
+            else (scene.cluster_min, scene.cluster_max))
+
+
 def cull_and_convert(scene, walk):
-    """What the list path does before its kernel and the fused path does
-    not: `_cull` on the walk's rays, the two conversions to int32, the copy of
-    the entries and the stacking of `far` into the rays."""
+    """The PyTorch cull (`_cull`) on a list walk's rays, its lists and counts
+    as int32, its entries contiguous and its `far` stacked into the rays:
+    what `_prep` did before kernel K was its cull, and does on the CPU and
+    for more than 128 boxes."""
     import torch
 
     from mafrixraytracing_torch.core.v3 import V3
     from mafrixraytracing_torch.ops import intersect as oi
 
     r = walk[-1]
-    boxes = ((scene.super_min, scene.super_max) if oi._is_super(walk)
-             else (scene.cluster_min, scene.cluster_max))
     lists, counts, entries, far = oi._cull(V3(r[0], r[1], r[2]), V3(r[3], r[4], r[5]),
-                                           r[6], *boxes)
+                                           r[6], *cull_boxes(scene, walk))
     return (lists.to(torch.int32), counts.to(torch.int32), entries.contiguous(),
             torch.stack([*r[:7], far]))
 
 
-def compare_cull(fwalk, lwalk, t_min, label, timed):
-    """Kernel K on the rays of one walk: lists, counts, entries and far
-    `torch.equal` to `cull_reference` and to the operands `_prep` made with
-    the PyTorch cull. With `timed`: its time, the plain version's and its
-    bound (the larger of its bytes and of 27 operations a slab test of a live
-    ray against a live box)."""
-    import torch
-
-    from mafrixraytracing_torch.ops import intersect as oi
-
-    aabbs, rays = fwalk[-2], fwalk[-1]
-    lists, counts, entries, lrays = lwalk[-4:]
-    n_box = lists.shape[1]
-    got = oi.cull_kernel(aabbs, rays, n_box)
-    torch.cuda.synchronize()
-    want, plain_ms = run_once_ms(lambda: oi.cull_reference(aabbs, rays, n_box))
-    names = ("lists", "counts", "entries", "far")
-    same = {n: torch.equal(g, w) for n, g, w in zip(names, got, want)}
-    upto = bool((torch.where(torch.arange(n_box, device=rays.device)[None, :]
-                             < got[1][:, None], got[0] - want[0], 0) == 0).all())
-    fed = all(torch.equal(g, w) for g, w in zip(got, (lists, counts, entries, lrays[7])))
-    err = max(float((got[2] - want[2]).abs().max()), float((got[3] - want[3]).abs().max()))
-    print(f"  cull {label}: B={rays.shape[1]} boxes={n_box} survivors a tile "
-          f"{float(got[1].float().mean()):.2f} equal to plain={same} lists up to the "
-          f"count={upto} equal to the list walk's operands={fed}")
-    check(all(same.values()) and upto, f"cull kernel differs from its plain version on {label}")
-    check(fed, f"cull kernel differs from the PyTorch cull's operands on {label}")
-    if not timed:
-        return dict(max_abs_err=err)
-    live_boxes = int((aabbs[6, :n_box] > 0.5).sum())
+def cull_bound(boxes, rays, t_min, outputs):
+    """Kernel K's bound on these operands: the larger of its bytes (the rays'
+    7 rows, the boxes and its outputs, once) over the memory rate and of 27
+    fp32 operations a slab test of a live ray (tmax > t_min) against a live
+    box (min x <= max x) over the fp32 rate."""
+    live_boxes = int((boxes[0][:, 0] <= boxes[1][:, 0]).sum())
     slabs = int((rays[6] > t_min).sum()) * live_boxes
-    moved = (nbytes(rays) - 4 * rays.shape[1]) + nbytes(aabbs, *got)
+    moved = (nbytes(rays) - 4 * rays.shape[1]) + nbytes(*boxes, *outputs)
     t_bytes, t_flops = moved / HBM_BYTES_PER_S, slabs * FLOPS_PER_SLAB / FP32_FLOPS
-    return dict(max_abs_err=err, ms=time_ms(lambda: oi.cull_kernel(aabbs, rays, n_box)),
-                plain_ms=plain_ms, library_ms=None,
-                cull_in_pytorch_ms=time_ms(lambda: oi.cull_reference(aabbs, rays, n_box)),
-                bound_ms=1e3 * max(t_bytes, t_flops),
+    return dict(bound_ms=1e3 * max(t_bytes, t_flops),
                 bound_by="operations" if t_flops >= t_bytes else "bytes",
                 ray_box_slabs=slabs, bytes_moved=moved)
 
 
+def compare_cull(scene, lwalk, t_min, label, timed):
+    """Kernel K on the rays and boxes of one list walk (the operands `_prep`
+    made, its lists K's own): lists, counts, entries and far `torch.equal`
+    to `cull_reference`, to the PyTorch cull's operands (`cull_and_convert`)
+    and to `_prep`'s. With `timed`: its time by CUDA events and on the device
+    (the profiler's time of `cull_kernel`), the plain version's, and its
+    bound (`cull_bound`)."""
+    import torch
+
+    from mafrixraytracing_torch.ops import intersect as oi
+
+    boxes, rays = cull_boxes(scene, lwalk), lwalk[-1]
+    n_box = boxes[0].shape[0]
+    got = oi.cull_kernel(*boxes, rays)
+    torch.cuda.synchronize()
+    want, plain_ms = run_once_ms(lambda: oi.cull_reference(*boxes, rays))
+    names = ("lists", "counts", "entries", "far")
+    same = {n: torch.equal(g, w) for n, g, w in zip(names, got, want)}
+    pytorch = cull_and_convert(scene, lwalk)
+    fed = all(torch.equal(g, w) for g, w in zip(got, (*pytorch[:3], pytorch[3][7])))
+    prep = all(torch.equal(g, w) for g, w in zip(got, (*lwalk[-4:-1], rays[7])))
+    err = max(float((got[2] - want[2]).abs().max()), float((got[3] - want[3]).abs().max()))
+    print(f"  cull {label}: B={rays.shape[1]} boxes={n_box} survivors a tile "
+          f"{float(got[1].float().mean()):.2f} equal to plain={same} equal to the "
+          f"PyTorch cull's operands={fed} equal to _prep's={prep}")
+    check(all(same.values()), f"cull kernel differs from its plain version on {label}")
+    check(fed, f"cull kernel differs from the PyTorch cull's operands on {label}")
+    check(prep, f"cull kernel differs from the operands of _prep on {label}")
+    if not timed:
+        return dict(max_abs_err=err)
+    return dict(max_abs_err=err, ms=time_ms(lambda: oi.cull_kernel(*boxes, rays)),
+                device_ms=kernel_device_ms(torch, lambda: oi.cull_kernel(*boxes, rays),
+                                           "cull_kernel"),
+                plain_ms=plain_ms, library_ms=None,
+                cull_in_pytorch_ms=time_ms(lambda: oi.cull_reference(*boxes, rays)),
+                **cull_bound(boxes, rays, t_min, got))
+
+
 def print_cull(r, where):
-    print(f"  cull: kernel {r['ms']:.4f} ms against the PyTorch cull with its "
-          f"conversions {r['cull_in_pytorch_ms']:.4f} ms (once: {r['plain_ms']:.4f} ms), "
-          f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} ({r['ray_box_slabs']} ray-box "
-          f"slab tests, {r['bytes_moved']} bytes) ({where})")
+    print(f"  cull: kernel {r['ms']:.4f} ms by events, {r['device_ms']:.4f} ms on the "
+          f"device, against the PyTorch cull with its conversions "
+          f"{r['cull_in_pytorch_ms']:.4f} ms (once: {r['plain_ms']:.4f} ms), bound "
+          f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bound_ms'] / r['device_ms']:.3f} "
+          f"of it on the device; {r['ray_box_slabs']} ray-box slab tests, "
+          f"{r['bytes_moved']} bytes) ({where})")
 
 
 def compare_walk_stats(scene, walk, t_min, label, closest_out, timed):
@@ -695,8 +724,9 @@ def compare_walk_stats(scene, walk, t_min, label, closest_out, timed):
 def fused_vs_list(scene, o, d, t_max, anyhit, lwalk, list_out, t_min, label,
                   timed=True):
     """The fused kernel of `lwalk`'s path on the same rays: bit-equal to its
-    plain version and to the list kernel's `list_out`; with `timed`, its time,
-    the list kernel's, the cull's with its conversions, and its bound."""
+    plain version and to the list kernel's `list_out`; kernel K on `lwalk`'s
+    rays (`compare_cull`); with `timed`, the fused kernel's time, the list
+    kernel's, K's, and the fused kernel's bound."""
     import torch
 
     from mafrixraytracing_torch.ops import intersect as oi
@@ -705,7 +735,7 @@ def fused_vs_list(scene, o, d, t_max, anyhit, lwalk, list_out, t_min, label,
     check(oi._is_fused(fwalk) and oi._is_super(fwalk) == oi._is_super(lwalk),
           "the fused operands are not those of the list walk's path")
     check(torch.equal(fwalk[-1][:7], lwalk[-1][:7]), "the two paths' rays differ")
-    cull = compare_cull(fwalk, lwalk, t_min, label, timed)
+    cull = compare_cull(scene, lwalk, t_min, label, timed)
     if anyhit:
         err, occ, plain_ms = compare_anyhit(fwalk, t_min, label + ", fused",
                                             same_as=list_out)
@@ -720,16 +750,15 @@ def fused_vs_list(scene, o, d, t_max, anyhit, lwalk, list_out, t_min, label,
     fused_kernel, list_kernel = pick(fwalk)[k], pick(lwalk)[k]
     ms_list = time_ms(lambda: list_kernel(*lwalk, t_min))
     ms = time_ms(lambda: fused_kernel(*fwalk, t_min))
-    ms_cull = time_ms(lambda: cull_and_convert(scene, lwalk))
     bound = walk_bound(scene, lwalk, t_min, fused_walk=fwalk, **result)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                list_kernel_ms=ms_list, cull_and_convert_ms=ms_cull, cull=cull, **bound)
+                list_kernel_ms=ms_list, cull_ms=cull["ms"], cull=cull, **bound)
 
 
 def print_fused(name, r, where):
-    print(f"  {name}: kernel {r['ms']:.4f} ms against cull + conversions "
-          f"{r['cull_and_convert_ms']:.4f} ms + list kernel {r['list_kernel_ms']:.4f} ms "
-          f"= {r['cull_and_convert_ms'] + r['list_kernel_ms']:.4f} ms; plain "
+    print(f"  {name}: kernel {r['ms']:.4f} ms against the cull kernel "
+          f"{r['cull_ms']:.4f} ms + list kernel {r['list_kernel_ms']:.4f} ms "
+          f"= {r['cull_ms'] + r['list_kernel_ms']:.4f} ms; plain "
           f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
           f"({r['ray_cluster_pairs']} ray-cluster pairs, {r['ray_box_slabs']} "
           f"ray-box slab tests) ({where})")
@@ -1232,14 +1261,50 @@ def phase_kernels_mesh(torch, dev, records, cornell_idx, cornell_P):
     return records
 
 
+def sha(*ts) -> str:
+    """A short hash of tensors' bytes, to compare two checkouts' outputs."""
+    import hashlib
+
+    return "".join(hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16] for t in ts)
+
+
+def cull_thunk(scene, walk):
+    """A call of kernel K on the rays and boxes of a list walk, in this
+    checkout's interface ((n, 3) minima and maxima) or in the one it had
+    before it was the cull of `_prep` (the packed box table and a width), so
+    that `--walks` times K in a parent checkout too."""
+    import inspect
+
+    from mafrixraytracing_torch.ops import intersect as oi
+
+    boxes, rays = cull_boxes(scene, walk), walk[-1]
+    if "aabbs" in inspect.signature(oi.cull_kernel).parameters:
+        aabbs = oi.pack_aabbs(*boxes)
+        return lambda: oi.cull_kernel(aabbs, rays, boxes[0].shape[0])
+    return lambda: oi.cull_kernel(*boxes, rays)
+
+
+def time_cull(torch, scene, walk, t_min, name, rec, outputs):
+    """`--walks`: kernel K on the rays and boxes of one list walk: its time by
+    CUDA events and on the device, its bound, a hash of its outputs."""
+    fn = cull_thunk(scene, walk)
+    out = fn()
+    outputs[f"K {name}"] = sha(*out)
+    rec[f"K {name}"] = time_ms(fn)
+    rec[f"K {name}, device"] = kernel_device_ms(torch, fn, "cull_kernel")
+    rec[f"K bound, {name}"] = cull_bound(cull_boxes(scene, walk), walk[-1], t_min,
+                                         out)["bound_ms"]
+
+
 def time_walks(torch, dev, label, out_dir):
     """`--walks`: the flat walks (A and F, B and G, F and G with their cull)
     on Cornell's, the soup's and the walk profile's sphere's queries
     (`time_flat_walks`), the gather (C) and the two-level walks (D and H, E
     and I) timed on the mesh's queries of phase 2, with D's fan-out on its
-    two inputs, and the scatter-add (J) on the mesh's and Cornell's
-    primary-hit rows, one row and the light rows, with its parts from the
-    profiler; one JSON line. D's and E's outputs and hashes of A's, B's, the
+    two inputs, the cull kernel (K, `time_cull`) on every query's rays and
+    boxes, and the scatter-add (J) on the mesh's and Cornell's primary-hit
+    rows, one row and the light rows, with its parts from the profiler; one
+    JSON line. D's and E's outputs and hashes of A's, B's, the
     gather's and J's are saved in `out_dir`, or, when a run of another
     checkout saved them there, compared with those: two checkouts timed in
     turns on one card must agree bit for bit. F must equal A, G equal B, H
@@ -1262,6 +1327,7 @@ def time_walks(torch, dev, label, out_dir):
                           fused=True)
         occ = oi.anyhit_super_kernel(*lw, t_min)
         outputs[name] = occ.cpu()
+        time_cull(torch, cs.scene, lw, t_min, f"mesh {name}", rec, outputs)
         rec[f"I equals E, {name}"] = torch.equal(oi.fused_anyhit_super_kernel(*fw, t_min), occ)
         rec[f"E {name}"] = time_ms(lambda: oi.anyhit_super_kernel(*lw, t_min))  # noqa: B023
         rec[f"I {name}"] = time_ms(lambda: oi.fused_anyhit_super_kernel(*fw, t_min))  # noqa: B023
@@ -1271,6 +1337,7 @@ def time_walks(torch, dev, label, out_dir):
                           fused=True)
         t, idx = oi.closest_super_kernel(*lw, t_min)
         outputs[f"D {name}"] = (t.cpu(), idx.cpu())
+        time_cull(torch, cs.scene, lw, t_min, f"mesh {name}", rec, outputs)
         th, ih = oi.fused_closest_super_kernel(*fw, t_min)
         rec[f"H equals D, {name}"] = torch.equal(th, t) and torch.equal(ih, idx)
         rec[f"D {name}"] = time_ms(lambda: oi.closest_super_kernel(*lw, t_min))  # noqa: B023
@@ -1345,14 +1412,9 @@ def time_flat_walks(torch, dev, t_min, rec, outputs):
     `flat_walk_inputs`, reached through `_prep` and `_searches` so that a
     parent checkout runs the same code: their times by CUDA events and each
     kernel's own device time (`kernel_device_ms`), F equal to A and G to B,
-    hashes of A's and B's outputs, and the flat fan-out of each input."""
-    import hashlib
-
+    hashes of A's and B's outputs, the flat fan-out of each input, and
+    kernel K on each input's rays and boxes (`time_cull`)."""
     from mafrixraytracing_torch.ops import intersect as oi
-
-    def sha(*ts):
-        return "".join(hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
-                       for t in ts)
 
     for name, scene, o, d, t_max, anyhit in flat_walk_inputs(torch, dev, t_min):
         lw, *_ = oi._prep(scene, o, d, t_min, t_max, anyhit=anyhit)
@@ -1378,6 +1440,8 @@ def time_flat_walks(torch, dev, t_min, rec, outputs):
         rec[f"{a} bound, {name}"] = bound["bound_ms"]
         rec[f"{a} fan-out, {name}"] = flat_fanout(
             scene, lw, t_min, bound["ray_cluster_pairs"], None if anyhit else out[0])
+        time_cull(torch, scene, lw, t_min, f"{name}{', any hit' if anyhit else ''}", rec,
+                  outputs)
 
 
 def scatter_walk_inputs(torch, dev, mesh_P, mesh_idx):
@@ -1598,7 +1662,9 @@ def phase_kernels(torch, dev):
 
 def phase_forward(torch, dev, make_spec, label, launched, idle):
     """The forward main path on `make_spec(width, height)`: `launched` names
-    the kernels it must go through, `idle` those it must not touch."""
+    the kernels it must go through, `idle` those it must not touch. Its cull
+    is kernel K: launched once a query (80 a frame, as many as the walks of
+    `launched[:2]`), the PyTorch cull never."""
     import numpy as np
 
     from mafrixraytracing_torch import bench
@@ -1622,8 +1688,9 @@ def phase_forward(torch, dev, make_spec, label, launched, idle):
     calibration = dict(cuda.LAUNCHES)
     # the recorded counts are the frame's own: zeroed just before the render,
     # read just after
+    culls = []
     cuda.reset_launches()
-    with torch.no_grad():
+    with torch.no_grad(), counting_pytorch_cull(culls):
         img = P.render_image(cs.scene, cs.camera, W, H, spp, rng.root_key(0),
                              config)
     torch.cuda.synchronize()
@@ -1641,6 +1708,11 @@ def phase_forward(torch, dev, make_spec, label, launched, idle):
         check(launches[k] > 0, f"kernel {k} was not launched on the {label} path")
     for k in idle:
         check(launches[k] == 0, f"kernel {k} was launched on the {label} path")
+    print(f"  the cull: kernel K launched {launches['cull']} times, the PyTorch cull "
+          f"called {len(culls)} times")
+    check(launches["cull"] == 80 == launches[launched[0]] + launches[launched[1]],
+          f"the {label} frame's 80 queries did not each launch the cull kernel")
+    check(not culls, f"the {label} frame called the PyTorch cull")
     with torch.no_grad():
         t3 = time.perf_counter()
         P.render_image(cs.scene, cs.camera, W, H, spp, rng.root_key(1), config)
@@ -1877,20 +1949,18 @@ FUSED_FLAT = ("fused_closest", "fused_anyhit")
 FUSED_TWO_LEVEL = ("fused_closest_super", "fused_anyhit_super")
 
 
-def phase_route(torch, list_images, flag, what, route_kernels):
-    """The render path on another route of the search (`flag`:
-    `FUSED_CULL`, the cull inside the walks, or `CULL_KERNEL`, the list walks
-    fed by the cull kernel): the frames of phases 3 and 5 again
-    (`list_images`: their images by label), then forward + backward on the
-    mesh, each held bit for bit against the default path. `route_kernels`
-    maps a scene's label to the search kernels the route must launch there;
-    every other search kernel must stay idle. -> the route's launch counts
+def phase_fused(torch, list_images):
+    """The render path on the fused-cull route (`FUSED_CULL`, the cull inside
+    the walks): the frames of phases 3 and 5 again (`list_images`: their
+    images by label), then forward + backward on the mesh, each held bit for
+    bit against the default path (kernel K and the list walks). The route
+    must launch its two fused kernels and no other search kernel, K
+    included, and never call the PyTorch cull. -> the route's launch counts
     of one frame."""
     from mafrixraytracing_torch import bench
     from mafrixraytracing_torch.core import rng
     from mafrixraytracing_torch.integrator import path as P
     from mafrixraytracing_torch.ops import cuda
-    from mafrixraytracing_torch.ops import intersect as oi
     from mafrixraytracing_torch.scene.builtin import cornell_box
     from mafrixraytracing_torch.scene.compiler import compile_scene
 
@@ -1899,7 +1969,7 @@ def phase_route(torch, list_images, flag, what, route_kernels):
 
     def counted(on, fn):
         """(fn(), seconds, this call's launch counts) on one of the paths."""
-        with route(flag, on):
+        with fused_cull(on):
             cuda.reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1908,19 +1978,19 @@ def phase_route(torch, list_images, flag, what, route_kernels):
             return out, time.perf_counter() - t0, dict(cuda.LAUNCHES)
 
     def report(label, runs):
-        # runs: default, route, route, default
-        for name, picked in (("default", (runs[0], runs[3])), (what, (runs[1], runs[2]))):
+        # runs: default, fused, fused, default
+        for name, picked in (("default", (runs[0], runs[3])), ("fused", (runs[1], runs[2]))):
             used = {k: v for k, v in picked[0][2].items() if v}
             print(f"  {label}, {name} path: {picked[0][1]:.3f} and {picked[1][1]:.3f} "
                   f"s/frame, kernel launches per frame {used}")
 
     launches = {}
-    for make_spec, label, list_names in ((cornell_box, "cornell", FLAT),
-                                         (mesh_spec, "mesh36996", TWO_LEVEL)):
-        names = route_kernels[label]
+    for make_spec, label, list_names, names in (
+            (cornell_box, "cornell", FLAT, FUSED_FLAT),
+            (mesh_spec, "mesh36996", TWO_LEVEL, FUSED_TWO_LEVEL)):
         cs = compile_scene(make_spec(W, H))
         scene, camera = cs.scene, cs.camera
-        with route(flag):
+        with fused_cull():
             config, _ = bench.calibrated_config(scene, camera, W, H, DEPTH)
 
         def frame(seed):
@@ -1929,30 +1999,24 @@ def phase_route(torch, list_images, flag, what, route_kernels):
                                       config)
 
         culls = []
-        real_cull = oi._cull
-        with mock.patch.object(oi, "_cull",
-                               lambda *a: culls.append(1) or real_cull(*a)):
+        with counting_pytorch_cull(culls):
             img, _, counts = counted(True, lambda: frame(0))
         same = torch.equal(img, list_images[label])
-        print(f"  forward {label} {W}x{H} x {SPP} spp, {what}: bit-equal to the default "
+        print(f"  forward {label} {W}x{H} x {SPP} spp, fused: bit-equal to the default "
               f"path's image={same}, calls of the PyTorch cull {len(culls)}, "
               f"launches {counts}")
-        check(bool(torch.isfinite(img).all()), f"{what} image has non-finite values")
-        check(same, f"the {what} {label} frame differs from the default path's")
-        check(not culls, f"the {what} {label} frame called the PyTorch cull")
+        check(bool(torch.isfinite(img).all()), "fused image has non-finite values")
+        check(same, f"the fused {label} frame differs from the default path's")
+        check(not culls, f"the fused {label} frame called the PyTorch cull")
         for k in names + ("unpack",):
-            check(counts[k] > 0, f"kernel {k} was not launched on the {what} {label} path")
+            check(counts[k] > 0, f"kernel {k} was not launched on the fused {label} path")
         for k in searches - set(names):
-            check(counts[k] == 0, f"kernel {k} was launched on the {what} {label} path")
-        if "cull" in names:
-            check(counts["cull"] == 80 == counts[names[1]] + counts[names[2]],
-                  f"the {label} frame's 80 queries did not each launch the cull kernel")
-        launches.update({k: counts[k] for k in names if k not in list_names})
+            check(counts[k] == 0, f"kernel {k} was launched on the fused {label} path")
+        launches.update({k: counts[k] for k in names})
         runs = [counted(f, lambda: frame(1)) for f in (False, True, True, False)]
         check(all(torch.equal(r[0], runs[0][0]) for r in runs),
               f"the {label} frames of the two paths differ at seed 1")
-        check(all(runs[0][2][k] > 0 for k in list_names)
-              and runs[0][2]["cull"] == 0,
+        check(all(runs[0][2][k] > 0 for k in list_names) and runs[0][2]["cull"] == 80,
               f"the default path did not run its kernels on {label}")
         report(f"forward {label}", runs)
 
@@ -1962,14 +2026,14 @@ def phase_route(torch, list_images, flag, what, route_kernels):
     (img_l, grads_l), (img_f, grads_f) = runs[0][0], runs[1][0]
     same = torch.equal(img_l, img_f) and all(
         torch.equal(a, b) for a, b in zip(grads_l, grads_f))
-    print(f"  forward + backward mesh36996: gradients and image of the {what} path "
+    print(f"  forward + backward mesh36996: gradients and image of the fused path "
           f"bit-equal to the default path's={same}, |grad albedo|max "
           f"{float(grads_f[0].abs().max()):.4g}")
-    check(same, f"the {what} path's gradients differ from the default path's")
+    check(same, "the fused path's gradients differ from the default path's")
     check(all(bool(torch.isfinite(g).all()) for g in grads_f)
-          and float(grads_f[0].abs().max()) > 0, f"the {what} path's gradients are off")
+          and float(grads_f[0].abs().max()) > 0, "the fused path's gradients are off")
     check(all(runs[1][2][k] > 0 for k in names + ("unpack", "scatter")),
-          f"the {what} forward + backward did not run its kernels")
+          "the fused forward + backward did not run its kernels")
     report("forward + backward mesh36996", runs)
     return launches
 
@@ -2227,9 +2291,9 @@ def main() -> int:
 
     print("[3] forward, Cornell")
     flat, two_level = FLAT, TWO_LEVEL
-    fused = FUSED_FLAT + FUSED_TWO_LEVEL + ("cull",)   # the other routes' kernels
+    fused = FUSED_FLAT + FUSED_TWO_LEVEL      # the fused route's kernels
     launches, _, cornell_img = phase_forward(torch, dev, cornell_box, "cornell",
-                                             launched=flat + ("unpack",),
+                                             launched=flat + ("unpack", "cull"),
                                              idle=two_level + fused)
 
     print("[4] forward + backward, Cornell")
@@ -2237,12 +2301,12 @@ def main() -> int:
 
     print("[5] forward, mesh of 36,996 faces")
     mesh_launches, small, mesh_img = phase_forward(
-        torch, dev, mesh_spec, "mesh36996", launched=two_level + ("unpack",),
+        torch, dev, mesh_spec, "mesh36996", launched=two_level + ("unpack", "cull"),
         idle=flat + fused)
     phase_textured(torch, small)
-    # each kernel's count is that of the path that runs it (the gather runs
-    # on both; the mesh path's count is the one recorded)
-    launches.update({k: mesh_launches[k] for k in two_level + ("unpack",)})
+    # each kernel's count is that of the path that runs it (the gather and
+    # the cull run on both; the mesh path's count is the one recorded)
+    launches.update({k: mesh_launches[k] for k in two_level + ("unpack", "cull")})
 
     print("[6] forward + backward, mesh of 36,996 faces")
     phase_fwd_bwd(torch, mesh_spec(WIDTH, HEIGHT), "mesh36996", iters=2)
@@ -2252,21 +2316,15 @@ def main() -> int:
 
     print("[8] the fused-cull search at full width")
     images = {"cornell": cornell_img, "mesh36996": mesh_img}
-    launches.update(phase_route(torch, images, "FUSED_CULL", "fused",
-                                {"cornell": FUSED_FLAT, "mesh36996": FUSED_TWO_LEVEL}))
+    launches.update(phase_fused(torch, images))
 
     print("[9] Whitted, motion blur, the native OBJ loader")
     phase_entry_points(torch)
 
-    print("[10] the cull-kernel route at full width")
-    launches.update(phase_route(torch, images, "CULL_KERNEL", "cull-kernel",
-                                {"cornell": ("cull",) + FLAT,
-                                 "mesh36996": ("cull",) + TWO_LEVEL}))
-
-    print("[11] the walk profile (cull kernel and instrumented walks)")
+    print("[10] the walk profile (cull kernel and instrumented walks)")
     launches.update(phase_walk_profile(torch))
 
-    print("[12] the multi-process path on one card")
+    print("[11] the multi-process path on one card")
     phase_parallel(torch, dev)
 
     pallas = "mafrixraytracing_tpu/ops/intersect_pallas.py"

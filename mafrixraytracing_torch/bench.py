@@ -20,18 +20,15 @@ seconds it took to construct the optimizer.
 
 With `--fused` (or BENCH_FUSED=1) the searches take the fused-cull kernels
 (`ops.intersect.FUSED_CULL`: the cull inside the walk's block) instead of the
-PyTorch cull + list kernels; `detail["fused_cull"]` records the flag. With
-`--cull-kernel` (or BENCH_CULL_KERNEL=1) the list kernels stay and their lists
-come from the cull kernel (`ops.intersect.CULL_KERNEL`: one launch a query in
-place of the PyTorch cull); `detail["cull_kernel"]` records it. Not both.
+cull kernel + list kernels; `detail["fused_cull"]` records the flag.
 
 Scenes: Cornell by default; `run(spec=...)` times any `SceneSpec`, and
 BENCH_OBJ=<path> builds one around an OBJ file with `scene.assets.mesh_scene`.
 Env knobs: BENCH_WIDTH/HEIGHT (256), BENCH_SPP (64), BENCH_DEPTH (5),
 BENCH_ITERS (3), BENCH_WAVEFRONT (2^19), BENCH_COMPACT (1), BENCH_HEADROOM
-(1.12), BENCH_OBJ (none), BENCH_FIT (0), BENCH_FUSED (0), BENCH_CULL_KERNEL (0).
+(1.12), BENCH_OBJ (none), BENCH_FIT (0), BENCH_FUSED (0).
 
-Run: python -m mafrixraytracing_torch.bench [--fit] [--fused | --cull-kernel]
+Run: python -m mafrixraytracing_torch.bench [--fit] [--fused]
 (needs a CUDA device)
 """
 from __future__ import annotations
@@ -139,7 +136,6 @@ def _setup(width, height, depth, spec, scene_name):
         "queries_per_spp": queries_per_spp,
         "backend": "cuda",
         "fused_cull": bool(ops_isect.FUSED_CULL),
-        "cull_kernel": bool(ops_isect.CULL_KERNEL),
         "device": info["name"],
         "power_limit": info["power_limit"],
         "compact": list(config.compact),
@@ -234,24 +230,11 @@ def fused_from_args(argv) -> bool:
     return fused
 
 
-def cull_kernel_from_args(argv) -> bool:
-    """Set `ops.intersect.CULL_KERNEL` from `--cull-kernel` /
-    BENCH_CULL_KERNEL=1."""
-    on = "--cull-kernel" in argv or os.environ.get("BENCH_CULL_KERNEL") == "1"
-    ops_isect.CULL_KERNEL = on
-    return on
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("bench: no CUDA device", file=sys.stderr)
         return 1
-    fused, cull_kernel = (fused_from_args(sys.argv[1:]),
-                          cull_kernel_from_args(sys.argv[1:]))
-    if fused and cull_kernel:
-        print("bench: --fused and --cull-kernel are two routes: pick one",
-              file=sys.stderr)
-        return 2
+    fused_from_args(sys.argv[1:])
     width = int(os.environ.get("BENCH_WIDTH", 256))
     height = int(os.environ.get("BENCH_HEIGHT", 256))
     spec, name = spec_from_env(width, height)

@@ -62,8 +62,8 @@
 //
 // The walks' bodies are the __device__ functions walk_closest and walk_anyhit
 // of intersect_common.cuh, which the fused-cull kernels (intersect_fused.cu)
-// run on a list and boxes in shared memory; here the list is the PyTorch
-// cull's (or kernel K's), in global memory.
+// run on a list and boxes in shared memory; here the list is kernel K's (or,
+// beyond 128 clusters and on the CPU, the PyTorch cull's), in global memory.
 
 #include "intersect_common.cuh"
 

@@ -10,8 +10,8 @@
 // instrumented kernels alone.
 //
 // A walk takes its tile's list, entries and count by pointer and value, so
-// the list may live in global memory (the cull ran in PyTorch: kernels A, B,
-// D, E) or in shared memory (the block culled for itself: kernels F, G, H,
+// the list may live in global memory (the cull ran before the walk, as
+// kernel K or in PyTorch: kernels A, B, D, E) or in shared memory (the block culled for itself: kernels F, G, H,
 // I). Hits, ties and early exits are the same code either way.
 #pragma once
 
@@ -627,7 +627,8 @@ __device__ __forceinline__ void visit_children(const float* __restrict__ tri, in
 // The closest-hit walk over a tile's n listed superclusters (kernels D and
 // H), pair-parallel (see above). best_t and best_i come back as kernel A's:
 // the closest hit in (t_min, tmax), smallest global index on ties; tmax and
-// -1 on a miss. t_min must be >= 0 (the C entry points refuse less).
+// -1 on a miss. For any t_min: the exit reads the cull's entries and far
+// only when t_min >= 0, as the flat walks' does.
 __device__ __forceinline__ void walk_closest_super(
     const float* __restrict__ tri, const float* __restrict__ bounds, const int* list,
     const float* entry, int n, const Ray& q, float t_min, float refine_rel, float refine_abs,
@@ -635,6 +636,7 @@ __device__ __forceinline__ void walk_closest_super(
   const int tid = threadIdx.x;
   const float ix = safe_inverse(q.dx), iy = safe_inverse(q.dy), iz = safe_inverse(q.dz);
   const bool dead = q.tmax <= t_min;
+  const bool ahead = t_min >= 0.0f;   // the exit holds (see the flat walks)
   const float floor = box_floor(t_min);
   stage_rays(sm, q);
   sm.key[tid] = miss_key(q.tmax);
@@ -645,7 +647,7 @@ __device__ __forceinline__ void walk_closest_super(
     const float best = key_float((unsigned)(sm.key[tid] >> 32));
     // early exit between superclusters as the flat walk's, inclusive
     const float worst = block_max(fminf(best, q.far), sm.red);
-    if (!(entry[k] <= worst)) break;
+    if (ahead && !(entry[k] <= worst)) break;
     const int s = list[k];
     stage_bounds(sm.b, bounds, s);
     __syncthreads();

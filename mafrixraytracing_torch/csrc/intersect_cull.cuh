@@ -1,8 +1,8 @@
-// The block-wide cull of one 128-ray tile against at most 128 boxes, shared by
-// the fused-cull walks (intersect_fused.cu: the list stays in shared memory
-// and is walked at once) and the stand-alone cull kernel (cull.cu: the list
-// goes to global memory for the list walks). See intersect_fused.cu for the
-// design; ops/intersect.py::_cull is the arithmetic it repeats.
+// The block-wide cull of one 128-ray tile against at most 128 boxes, for the
+// fused-cull walks (intersect_fused.cu: the list stays in shared memory and is
+// walked at once). See intersect_fused.cu for the design;
+// ops/intersect.py::_cull is the arithmetic it repeats, as the stand-alone
+// cull kernel K (cull.cu) does.
 #pragma once
 
 #include "intersect_common.cuh"

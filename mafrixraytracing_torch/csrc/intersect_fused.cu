@@ -53,8 +53,9 @@
 // table (L2-resident) and 6 KB per visited cluster, and writes 8 or 1 bytes
 // a ray. 15.9 KB of static shared memory at most (F).
 //
-// `tile_cull` (intersect_cull.cuh) is a __device__ function of its own: the
-// stand-alone cull kernel of cull.cu is a thin __global__ around it.
+// `tile_cull` (intersect_cull.cuh) is the cull of one tile in a block of one
+// tile; the stand-alone cull kernel K (cull.cu) culls several tiles a block
+// with the same arithmetic.
 
 #include "intersect_cull.cuh"
 
@@ -130,8 +131,7 @@ __global__ void __launch_bounds__(TILE) fused_anyhit_super_kernel(
 // (C, 12, 128); aabbs (8, 128) as `pack_aabbs` makes it, of which the first
 // n_box <= 128 columns are boxes (clusters: n_box = C; superclusters: n_box =
 // S with C <= S * 16 and bounds (S, 7, 16)); rays (8, B) = [ox oy oz dx dy dz
-// tmax -], the last row unread; the two-level closest-hit search takes t_min
-// >= 0 only. Each returns cudaGetLastError().
+// tmax -], the last row unread. Each returns cudaGetLastError().
 extern "C" int mfx_fused_closest(const float* tri, const float* aabbs, const float* rays,
                                  int B, int n_box, float t_min, float refine_rel,
                                  float refine_abs, float* t_out, int* i_out,
@@ -161,8 +161,7 @@ extern "C" int mfx_fused_closest_super(const float* tri, const float* bounds,
                                        float refine_abs, float* t_out, int* i_out,
                                        cudaStream_t stream) {
   const int tiles = B / TILE;
-  if (n_box < 0 || n_box > CP || C > n_box * SUPER || !(t_min >= 0.0f))
-    return (int)cudaErrorInvalidValue;
+  if (n_box < 0 || n_box > CP || C > n_box * SUPER) return (int)cudaErrorInvalidValue;
   if (tiles > 0)
     fused_closest_super_kernel<<<tiles, TILE, 0, stream>>>(
         tri, bounds, aabbs, rays, B, n_box, t_min, refine_rel, refine_abs, t_out, i_out);

@@ -53,7 +53,10 @@
 // of static shared memory leave occupancy to the register count.
 //
 // Numerics and ties as in intersect.cu: no fast math, --fmad=false, among
-// equal t the smallest triangle index wins across clusters.
+// equal t the smallest triangle index wins across clusters. t_min may be
+// negative, as there: the keys order t's bits as floats, the refinement then
+// rules nothing out from behind the origin, and the exits read the cull's
+// entries and far only when t_min >= 0.
 //
 // The walks' bodies are the __device__ functions walk_closest_super and
 // walk_anyhit_super of intersect_common.cuh, shared with the fused-cull
@@ -101,16 +104,15 @@ __global__ void __launch_bounds__(TILE) anyhit_super_kernel(
 // C entry points, bound with ctypes. B is a multiple of TILE; tri is
 // (C, 12, 128) with C <= S * 16, bounds (S, 7, 16), lists/entries
 // (B / TILE, S), counts (B / TILE,), rays (8, B) = [ox oy oz dx dy dz tmax
-// far]; refine_rel and refine_abs widen the child refinement's comparisons;
-// the closest-hit walk takes t_min >= 0 only. Each returns
-// cudaGetLastError().
+// far]; refine_rel and refine_abs widen the child refinement's comparisons.
+// Each returns cudaGetLastError().
 extern "C" int mfx_closest_super(const float* tri, const float* bounds, const int* lists,
                                  const int* counts, const float* entries, const float* rays,
                                  int B, int C, int S, float t_min, float refine_rel,
                                  float refine_abs, float* t_out, int* i_out,
                                  cudaStream_t stream) {
   const int tiles = B / TILE;
-  if (C > S * SUPER || !(t_min >= 0.0f)) return (int)cudaErrorInvalidValue;
+  if (C > S * SUPER) return (int)cudaErrorInvalidValue;
   if (tiles > 0)
     closest_super_kernel<<<tiles, TILE, 0, stream>>>(tri, bounds, lists, counts, entries, rays,
                                                       B, S, t_min, refine_rel, refine_abs,

@@ -3,11 +3,15 @@
 Port of the list paths of `mafrixraytracing_tpu/ops/intersect_pallas.py`
 (flat and two-level), in two phases:
 
-1. **Cull (PyTorch ops).** Slab-test every ray against every cluster AABB as
-   one dense (B, C) computation, take the entry distance per 128-ray tile,
-   and sort each tile's surviving clusters front to back (`_cull`, a stable
-   `torch.sort` in place of the TPU's bitonic network). `far` is each ray's
-   exit from its last surviving cluster.
+1. **Cull.** Slab-test every ray against every cluster AABB, take the
+   entry distance per 128-ray tile, and sort each tile's surviving clusters
+   front to back. `far` is each ray's exit from its last surviving cluster.
+   `cull_lists` chooses by the tensors' device and the box count: kernel K
+   (`cull_kernel`, `csrc/cull.cu`, one launch a query) for CUDA tensors and at
+   most `CP` = 128 boxes; otherwise `cull_reference`, the same function in
+   PyTorch (`_cull`: one dense (B, C) computation and a stable `torch.sort` in
+   place of the TPU's bitonic network, then the walks' integer types). The
+   two agree bit for bit.
 2. **Walk (CUDA kernels, `csrc/intersect.cu`).** Kernel A (`closest_kernel`)
    finds each ray's closest hit; kernel B (`anyhit_kernel`) answers shadow
    queries. Both walk a tile's list front to back and exit early; for each
@@ -29,17 +33,10 @@ With `FUSED_CULL` set (off by default, as in the JAX package) the cull moves
 into the walk's block: kernels F, G (flat) and H, I (two-level) of
 `csrc/intersect_fused.cu` take the packed box table (`pack_aabbs`, at most
 `CP` = 128 clusters or superclusters) and the rays, slab-test, order and walk
-in one launch, and `_prep` skips `_cull` and its (B, C) temporaries. Their
-lists equal `_cull`'s, so they agree bit for bit with A, B, D, E fed by
-`_cull`. More than 128 boxes raise `ValueError`; the fused path never drops to
-the list path on its own.
-
-With `CULL_KERNEL` set (off by default too) the list path keeps its walks (A,
-B, D, E) and takes its lists from kernel K (`cull_kernel`, `csrc/cull.cu`: the
-same block-wide cull as a kernel of its own, one launch a query) in place of
-`_cull`. K's lists, counts, entries and `far` equal `_cull`'s bit for bit, so
-the three routes agree bit for bit. `cull_lists` dispatches: K for CUDA
-tensors, `cull_reference` (`_cull` on the packed table) for CPU tensors.
+in one launch, and `_prep` runs no cull of its own. Their lists equal
+`_cull`'s, so they agree bit for bit with A, B, D, E fed by the cull. More
+than 128 boxes raise `ValueError`; the fused path never drops to the list
+path on its own.
 
 Two instrumented walks, `closest_dbg_kernel` and `closest_full_kernel`
 (`csrc/intersect_stats.cu`), compute kernel A's function on A's operands
@@ -86,14 +83,10 @@ COMP = 12           # packed components per triangle (pack_tris)
 # Scenes with more clusters than this take the two-level path. A module
 # variable so that tests can force that path on small scenes.
 SUPER_MIN_C = 128
-# Cull inside the walk's block (kernels F-I) instead of `_cull` in PyTorch. A
+# Cull inside the walk's block (kernels F-I) instead of before the walk. A
 # module variable that callers patch; off by default, as in the JAX package.
 FUSED_CULL = False
-# The list path's cull as one kernel launch (kernel K) instead of `_cull` in
-# PyTorch; the walks stay A, B, D, E. Off by default; not together with
-# FUSED_CULL.
-CULL_KERNEL = False
-CP = 128            # box slots of the packed box table (pack_aabbs)
+CP = 128            # boxes of the cull kernel and box slots of pack_aabbs' table
 AABB_ROWS = 8       # its rows: min xyz, max xyz, live, pad
 BOUNDS_ROWS = 7     # rows per supercluster in pack_bounds: min xyz, max xyz, live
 # The walks grow each box of their box test by REFINE_REL times the scale of
@@ -151,8 +144,7 @@ def pack_bounds(scene) -> torch.Tensor:
 
 
 def pack_aabbs(cmin: torch.Tensor, cmax: torch.Tensor) -> torch.Tensor:
-    """(8, CP) component-major box table of the fused kernels and of the
-    cull kernel: rows [min x,
+    """(8, CP) component-major box table of the fused kernels: rows [min x,
     y, z, max x, y, z, live, pad] across CP = 128 slots. Empty boxes carry
     the +-3e38 sentinels, whose slabs overflow and would pass the interval
     test: the live row masks them, as in `_cull`. Slots past the last box
@@ -213,49 +205,57 @@ def _cull(o: V3, d: V3, t_max, cmin, cmax):
     return lists, counts, entries, far
 
 
-def cull_reference(aabbs, rays, n_box: int = CP):
-    """Plain version of kernel K: `_cull` on the first n_box boxes of the
-    packed (8, CP) table for rays (8, B) = [o, d, tmax, unused], B a multiple
-    of TILE. Returns
-      lists   (tiles, n_box) int32 box ids, front to back, survivors first
-      counts  (tiles,)       int32 number of survivors
-      entries (tiles, n_box) f32 tile-min entry distance per sorted slot
-      far     (B,)           f32 exit of the ray's last surviving box, capped
-                             at tmax
+def cull_reference(cmin, cmax, rays, far=None):
+    """Plain version of kernel K: `_cull` on the n boxes (cmin, cmax), (n, 3)
+    each, for rays (8, B) = [o, d, tmax, unused], B a multiple of TILE.
+    Returns
+      lists   (tiles, n) int32 box ids, front to back, survivors first
+      counts  (tiles,)   int32 number of survivors
+      entries (tiles, n) f32 tile-min entry distance per sorted slot
+      far     (B,)       f32 exit of the ray's last surviving box, capped at
+                         tmax; written into `far` when it is given (the
+                         rays' row 7, for the list walks)
     The columns from `counts` on hold the boxes no ray of the tile can meet,
-    by ascending id, with entry BIG; the walks never read them. With n_box =
-    CP the table's unused slots (live 0) are such boxes too."""
+    by ascending id, with entry BIG; the walks never read them."""
     o, d = V3(rays[0], rays[1], rays[2]), V3(rays[3], rays[4], rays[5])
-    lists, counts, entries, far = _cull(o, d, rays[6], *_unpack_aabbs(aabbs, n_box))
-    return (lists.to(torch.int32), counts.to(torch.int32), entries.contiguous(),
-            far)
+    lists, counts, entries, f = _cull(o, d, rays[6], cmin, cmax)
+    if far is not None:
+        far.copy_(f)
+        f = far
+    return lists.to(torch.int32), counts.to(torch.int32), entries.contiguous(), f
 
 
-def cull_kernel(aabbs, rays, n_box: int = CP):
+def cull_kernel(cmin, cmax, rays, far=None):
     """Launch kernel K (csrc/cull.cu). Same contract as `cull_reference`, to
-    which it is bit-equal: rows of n_box columns, so that kernels A, B, D and
-    E read them with the stride they already take."""
-    B = rays.shape[1]
-    if not 0 <= n_box <= CP:
-        raise ValueError(f"the cull kernel takes at most {CP} boxes, got {n_box}")
+    which it is bit-equal, for 1 to CP boxes: rows of n columns, the stride
+    kernels A, B, D and E take. It reads the boxes as they are, (n, 3)
+    minima and maxima, so no table is packed for it."""
+    B, n = rays.shape[1], cmin.shape[0]
+    if not 1 <= n <= CP:
+        raise ValueError(f"the cull kernel takes 1 to {CP} boxes, got {n}")
     if B % TILE:
         raise ValueError(f"ray batch {B} is not a multiple of {TILE}")
-    cuda.require(aabbs, "aabbs", torch.float32, (AABB_ROWS, CP))
+    cuda.require(cmin, "cmin", torch.float32, (n, 3))
+    cuda.require(cmax, "cmax", torch.float32, (n, 3))
     cuda.require(rays, "rays", torch.float32, (8, B))
     tiles = B // TILE
-    lists = torch.empty((tiles, n_box), dtype=torch.int32, device=rays.device)
-    entries = torch.empty((tiles, n_box), dtype=torch.float32, device=rays.device)
+    lists = torch.empty((tiles, n), dtype=torch.int32, device=rays.device)
+    entries = torch.empty((tiles, n), dtype=torch.float32, device=rays.device)
     counts = torch.empty((tiles,), dtype=torch.int32, device=rays.device)
-    far = torch.empty((B,), dtype=torch.float32, device=rays.device)
-    cuda.launch("cull", aabbs, rays, B, n_box, lists, entries, counts, far)
+    if far is None:
+        far = torch.empty((B,), dtype=torch.float32, device=rays.device)
+    cuda.require(far, "far", torch.float32, (B,))
+    cuda.launch("cull", cmin, cmax, rays, B, n, lists, entries, counts, far)
     return lists, counts, entries, far
 
 
-def cull_lists(aabbs, rays, n_box: int = CP):
-    """Kernel K for CUDA tensors, its plain version for CPU tensors."""
-    if rays.is_cuda:
-        return cull_kernel(aabbs, rays, n_box)
-    return cull_reference(aabbs, rays, n_box)
+def cull_lists(cmin, cmax, rays, far=None):
+    """The list walks' cull, chosen by the tensors' device and the box count:
+    kernel K for CUDA tensors and at most CP boxes, its plain version (the
+    same numbers) for CPU tensors and for more boxes."""
+    if rays.is_cuda and cmin.shape[0] <= CP:
+        return cull_kernel(cmin, cmax, rays, far)
+    return cull_reference(cmin, cmax, rays, far)
 
 
 def _mega_hits(scene, o: V3, d: V3, t_min: float, t_max):
@@ -623,18 +623,10 @@ def _check_super_args(tri, bounds, lists, counts, entries, rays):
     cuda.require(rays, "rays", torch.float32, (8, B))
 
 
-def _check_t_min(t_min: float) -> None:
-    # kernels D and H take t_min >= 0 only (kernels A and F take any)
-    if not t_min >= 0.0:
-        raise ValueError(f"the two-level closest-hit kernels take t_min >= 0, got {t_min}")
-
-
 def closest_super_kernel(tri, bounds, lists, counts, entries, rays,
                          t_min: float):
     """Launch kernel D (csrc/intersect_super.cu). Same contract as
-    `closest_super_reference`, for t_min >= 0; int32 lists/counts of
-    supercluster ids."""
-    _check_t_min(t_min)
+    `closest_super_reference`; int32 lists/counts of supercluster ids."""
     _check_super_args(tri, bounds, lists, counts, entries, rays)
     B, C, S = rays.shape[1], tri.shape[0], bounds.shape[0]
     t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
@@ -664,7 +656,7 @@ def anyhit_super_kernel(tri, bounds, lists, counts, entries, rays,
 def _fused_walk(tri, aabbs, rays, n_box: int):
     """`_cull` on the first n_box boxes of the packed table -> the list
     walk's (lists, counts, entries, rays with `far` in row 7)."""
-    lists, counts, entries, far = cull_reference(aabbs, rays, n_box)
+    lists, counts, entries, far = cull_reference(*_unpack_aabbs(aabbs, n_box), rays)
     return lists, counts, entries, torch.cat([rays[:7], far[None]])
 
 
@@ -742,8 +734,7 @@ def fused_anyhit_kernel(tri, aabbs, rays, t_min: float):
 
 def fused_closest_super_kernel(tri, bounds, aabbs, rays, t_min: float):
     """Launch kernel H (csrc/intersect_fused.cu). Same contract as
-    `fused_closest_super_reference`, for t_min >= 0."""
-    _check_t_min(t_min)
+    `fused_closest_super_reference`."""
     n_box = _check_fused_args(tri, aabbs, rays, bounds)
     B, C = rays.shape[1], tri.shape[0]
     t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
@@ -851,23 +842,19 @@ def fused_any_super_hit(tri, bounds, aabbs, rays, t_min: float):
 
 
 def _prep(scene, o: V3, d: V3, t_min: float, t_max, anyhit: bool,
-          fused: bool = False, cull_kernel: bool = False):
+          fused: bool = False):
     """Detach, pad to a TILE multiple (dead padding rays), run the dense
     mega test (capping t_max so the cull prunes everything behind the first
     mega hit), cull and pack. Returns the walk's operands plus what the
     caller merges. With more than SUPER_MIN_C clusters the cull runs on the
     superclusters and the walk's operands are those of kernels D and E
     (`pack_bounds` second); else those of kernels A and B (the cluster boxes
-    `cluster_min` and `cluster_max` second and third). With `fused` there is no cull here: the
-    operands are those of kernels F and G, or H and I (the packed box table
-    in place of lists, counts and entries; the rays' `far` row is zero and
-    unread). With `cull_kernel` the operands are the list walks' and the
-    lists come from `cull_lists` (kernel K) on the packed box table in place
-    of `_cull`; more than 128 boxes raise `ValueError`, as does asking for
-    both."""
-    if fused and cull_kernel:
-        raise ValueError("FUSED_CULL and CULL_KERNEL are two routes of one "
-                         "search: set at most one")
+    `cluster_min` and `cluster_max` second and third). The cull is
+    `cull_lists`'s: kernel K on CUDA tensors and at most CP boxes, `_cull`
+    otherwise; it writes `far` into the rays' row 7. With `fused` there is no
+    cull here: the operands are those of kernels F and G, or H and I (the
+    packed box table in place of lists, counts and entries; the rays' `far`
+    row is zero and unread)."""
     use_super = scene.cluster_min.shape[0] > SUPER_MIN_C
     o = o.map(torch.Tensor.detach)
     d = d.map(torch.Tensor.detach)
@@ -898,22 +885,16 @@ def _prep(scene, o: V3, d: V3, t_min: float, t_max, anyhit: bool,
         boxes = (scene.cluster_min, scene.cluster_max)
         packed = (pack_tris(scene),)
         head = (*packed, *boxes)
+    rows = [o.x, o.y, o.z, d.x, d.y, d.z, t_max_k]
     if fused:
-        rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z, t_max_k,
-                            torch.zeros_like(t_max_k)])
+        rays = torch.stack([*rows, torch.zeros_like(t_max_k)])
         walk = (*packed, pack_aabbs(*boxes), rays)
-    elif cull_kernel:
-        rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z, t_max_k,
-                            torch.zeros_like(t_max_k)])
-        lists, counts, entries, far = cull_lists(pack_aabbs(*boxes), rays,
-                                                 boxes[0].shape[0])
-        rays[7] = far
-        walk = (*head, lists, counts, entries, rays)
     else:
-        lists, counts, entries, far = _cull(o, d, t_max_k, *boxes)
-        rays = torch.stack([o.x, o.y, o.z, d.x, d.y, d.z, t_max_k, far])
-        walk = (*head, lists.to(torch.int32), counts.to(torch.int32),
-                entries.contiguous(), rays)
+        # row 7, far, is the cull's to write
+        rays = torch.empty((8, Bp), dtype=torch.float32, device=dev)
+        torch.stack(rows, out=rays[:7])
+        lists, counts, entries, _ = cull_lists(*boxes, rays, far=rays[7])
+        walk = (*head, lists, counts, entries, rays)
     return walk, B, t_max_arr, mega_t[:B], mega_idx[:B]
 
 
@@ -948,15 +929,13 @@ def _searches(walk):
 @torch.no_grad()
 def find_closest_soa(scene, o: V3, d: V3, t_min: float, t_max, times=None):
     """Closest hit per ray: clustered triangles through kernel A (kernel D
-    on the two-level path; F or H with `FUSED_CULL`; lists from kernel K with
-    `CULL_KERNEL`), mega triangles and
+    on the two-level path; F or H with `FUSED_CULL`), mega triangles and
     spheres merged densely. `times` (B,) shifts the spheres by their
     velocities (motion blur; the clustered triangles are static).
     Returns (t (B,) f32, BIG on a miss; idx (B,) int64: triangle [0, T),
     sphere T + s, -1 on a miss). Not differentiable by design."""
     walk, B, t_max_arr, mega_t, mega_idx = _prep(scene, o, d, t_min, t_max,
-                                                 anyhit=False, fused=FUSED_CULL,
-                                                 cull_kernel=CULL_KERNEL)
+                                                 anyhit=False, fused=FUSED_CULL)
     tt, ti = _searches(walk)[0](*walk, t_min)
     tt, ti = tt[:B], ti[:B].long()
     tt = torch.where(ti >= 0, tt, BIG)
@@ -981,8 +960,7 @@ def occluded_soa(scene, o: V3, d: V3, t_min: float, t_max, times=None):
     `FUSED_CULL`), mega triangles and spheres densely; `times` as in
     `find_closest_soa`."""
     walk, B, t_max_arr, mega_t, mega_idx = _prep(scene, o, d, t_min, t_max,
-                                                 anyhit=True, fused=FUSED_CULL,
-                                                 cull_kernel=CULL_KERNEL)
+                                                 anyhit=True, fused=FUSED_CULL)
     occ = _searches(walk)[1](*walk, t_min)[:B] | (mega_idx >= 0)
     if scene.num_live_spheres > 0:
         st, _ = closest_sphere_soa(scene, o.map(torch.Tensor.detach),

@@ -1,6 +1,6 @@
 """Profile the benchmark's configuration on one CUDA card with torch.profiler.
 
-    python -m mafrixraytracing_torch.profile_bench [--fit] [--fused | --cull-kernel] [TRACE_DIR]
+    python -m mafrixraytracing_torch.profile_bench [--fit] [--fused] [TRACE_DIR]
 
 Calibrates and warms up the benchmark's 256x256 x 64 spp, depth 5 cell
 (Cornell, or with BENCH_OBJ=<path> the `mesh_scene` around that OBJ file;
@@ -15,9 +15,8 @@ time of its two passes (its sort is not told apart from the others'), and
 the device time and launches of each search kernel that ran (A, B, D-I, K,
 by the kernel's function name). With
 TRACE_DIR, it also writes Chrome traces there. `--fused` (or BENCH_FUSED=1)
-profiles the fused-cull searches (`ops.intersect.FUSED_CULL`), `--cull-kernel`
-(or BENCH_CULL_KERNEL=1) the list walks fed by the cull kernel
-(`ops.intersect.CULL_KERNEL`).
+profiles the fused-cull searches (`ops.intersect.FUSED_CULL`) in place of the
+list walks fed by the cull kernel K.
 """
 from __future__ import annotations
 
@@ -143,10 +142,9 @@ def main() -> int:
         print("profile_bench: no CUDA device", file=sys.stderr)
         return 1
     print(bench.device_info()["nvidia_smi"])
-    print(f"fused_cull={bench.fused_from_args(sys.argv[1:])} "
-          f"cull_kernel={bench.cull_kernel_from_args(sys.argv[1:])}")
+    print(f"fused_cull={bench.fused_from_args(sys.argv[1:])}")
     spec, _ = bench.spec_from_env(W, H)
-    args = [a for a in sys.argv[1:] if a not in ("--fit", "--fused", "--cull-kernel")]
+    args = [a for a in sys.argv[1:] if a not in ("--fit", "--fused")]
     fit = "--fit" in sys.argv[1:] or os.environ.get("BENCH_FIT") == "1"
     profile_scene(spec, args[0] if args else None, fit=fit)
     return 0

@@ -16,11 +16,11 @@ it writes to the temp directory) it builds two wavefronts:
   dead lanes (a miss) last with tmax 0.
 
 On each it runs the PyTorch cull (`cull_reference`: `_cull` and its
-conversions) against kernel K (`cull_lists`), and kernel A against the
-counting walk and the walk without early exit, and prints: the listed clusters
-a tile and the walked clusters a tile (mean, p50, p90, max), the times of the
-five, and whether K equals the PyTorch cull and both instrumented walks equal
-A bit for bit. The last line is one JSON object with all of it. `main()`
+conversions) against kernel K (`cull_lists`, the main path's cull), and
+kernel A against the counting walk and the walk without early exit, and
+prints: the listed clusters a tile and the walked clusters a tile (mean,
+p50, p90, max), the times of the five, and whether K equals the PyTorch cull
+and both instrumented walks equal A bit for bit. The last line is one JSON object with all of it. `main()`
 returns that record and raises if an equality fails.
 
 The two instrumented walks launch here and only here: no render path calls
@@ -150,17 +150,16 @@ def profile_wavefront(scene, o: V3, d: V3, t_max, label: str, reps: int) -> dict
     """Cull and walk one wavefront every way; -> its record."""
     on_card = o.x.is_cuda
     walk, *_ = oi._prep(scene, o, d, T_MIN, t_max, anyhit=False)
-    fwalk, *_ = oi._prep(scene, o, d, T_MIN, t_max, anyhit=False, fused=True)
     if oi._is_super(walk):
         raise ValueError(f"profile_walk needs a flat scene: {scene.cluster_min.shape[0]} "
                          f"clusters take the two-level path")
     lists, counts, rays = walk[-4], walk[-3], walk[-1]
-    aabbs, rays7 = fwalk[-2], fwalk[-1]
-    n_box = lists.shape[1]
-    cull_p = oi.cull_reference(aabbs, rays7, n_box)
-    cull_k = oi.cull_lists(aabbs, rays7, n_box)
+    boxes = (scene.cluster_min, scene.cluster_max)
+    cull_p = oi.cull_reference(*boxes, rays)
+    cull_k = oi.cull_lists(*boxes, rays)
     same_cull = (all(torch.equal(a, b) for a, b in zip(cull_k, cull_p))
-                 and torch.equal(cull_k[0], lists) and torch.equal(cull_k[1], counts))
+                 and torch.equal(cull_k[0], lists) and torch.equal(cull_k[1], counts)
+                 and torch.equal(cull_k[3], rays[7]))
     ta, ia = oi.closest_hit(*walk, T_MIN)
     td, id_, walked = oi.closest_dbg_hit(*walk, T_MIN)
     tf, if_ = oi.closest_full_hit(*walk, T_MIN)
@@ -175,8 +174,8 @@ def profile_wavefront(scene, o: V3, d: V3, t_max, label: str, reps: int) -> dict
         "full_equals_closest": bool(torch.equal(tf, ta) and torch.equal(if_, ia)),
         "walked_within_listed": bool((walked <= counts).all()),
         ("ms" if on_card else "host_ms"): {
-            "cull": time_ms(lambda: oi.cull_reference(aabbs, rays7, n_box), reps, on_card),
-            "cull_kernel": time_ms(lambda: oi.cull_lists(aabbs, rays7, n_box), reps, on_card),
+            "cull": time_ms(lambda: oi.cull_reference(*boxes, rays), reps, on_card),
+            "cull_kernel": time_ms(lambda: oi.cull_lists(*boxes, rays), reps, on_card),
             "closest": time_ms(lambda: oi.closest_hit(*walk, T_MIN), reps, on_card),
             "closest_dbg": time_ms(lambda: oi.closest_dbg_hit(*walk, T_MIN), reps, on_card),
             "closest_full": time_ms(lambda: oi.closest_full_hit(*walk, T_MIN), reps, on_card),

@@ -1,20 +1,25 @@
-"""Kernel K, the cull as a kernel of its own, and the route that uses it.
+"""Kernel K, the cull of every query of at most 128 boxes, and `_prep` on it.
 
-On the CPU `cull_lists` runs K's plain version, `cull_reference` (`_cull` on
-the packed box table). It is held against the JAX package's `_cull` on the
-same seeded rays and boxes with the yardstick of the TPU experiment
-(`experiments/exp_cullkernel.py:147-159`): counts and the lists up to the
-count exactly (as sets where two boxes' entries round differently), entries
-and far within rtol 1e-5. What the CUDA kernel writes to global memory (rows
-of `stride` columns, the count, far) is stated in numpy on top of the
-in-block cull's model (`tests/test_torch_fused.py::block_cull_model`) and
-held against `cull_reference` exactly. With `CULL_KERNEL` on, queries and
-renders must equal the port's default path bit for bit and the JAX render
-within the path tolerance of `tests/test_torch_path.py`.
+`_prep` takes its lists from `cull_lists`: kernel K for CUDA tensors and at
+most 128 boxes, its plain version `cull_reference` (`_cull` and the walks'
+integer types) otherwise. On the CPU `cull_reference` is held against the
+JAX package's `_cull` on the same seeded rays and boxes with the yardstick of
+the TPU experiment (`experiments/exp_cullkernel.py:147-159`): counts and the
+lists up to the count exactly (as sets where two boxes' entries round
+differently), entries and far within rtol 1e-5. What the CUDA kernel does,
+block by block (the live boxes staged, a minimum a warp, the tile's key of
+each box, a rank by counting, rows of n columns), is stated in numpy by
+`cull_kernel_model` and held against `cull_reference` exactly. `_prep`'s
+operands must equal those of `_cull` itself on every case, more than 128
+boxes must take `_cull`, and a render and its gradients with the model as
+the cull must equal the default path's bit for bit and match the JAX
+package's within the tolerances of `tests/test_torch_path.py`.
 
-The kernel itself is held against `cull_reference` on the card in
+The kernel itself is held against `cull_reference` and `_cull` on the card in
 tests/test_torch_kernels.py.
 """
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +27,7 @@ import pytest
 import torch
 
 from mafrixraytracing_torch.core import rng as trng
+from mafrixraytracing_torch.core.v3 import V3 as TV3
 from mafrixraytracing_torch.integrator import path as TP
 from mafrixraytracing_torch.ops import cuda
 from mafrixraytracing_torch.ops import intersect as ti
@@ -29,11 +35,12 @@ from mafrixraytracing_tpu.core.v3 import V3 as JV3
 from mafrixraytracing_tpu.integrator import path as JP
 from mafrixraytracing_tpu.ops import intersect_pallas as ip
 
-from test_torch_fused import block_cull_model, random_boxes
+from test_torch_fused import random_boxes
 from test_torch_path import COMPACT, cornell
-from test_torch_super import CASES, aimed_rays, both_v3, rays, scenes
+from test_torch_super import CASES, both_v3, rays, scenes
 
 T_MIN = 1e-3
+CULL_TILES = 4          # tiles a block of csrc/cull.cu
 
 
 def seeded_rays(B, seed):
@@ -56,10 +63,9 @@ def seeded_rays(B, seed):
 @pytest.mark.parametrize("n,seed", [(128, 0), (32, 1), (64, 2), (5, 3)])
 def test_cull_reference_matches_jax_cull(n, seed):
     cmin, cmax = random_boxes(n, seed)
-    aabbs = ti.pack_aabbs(cmin, cmax)
     r = seeded_rays(4 * ti.TILE, 50 + seed)
     lists, counts, entries, far = (x.numpy() for x in ti.cull_reference(
-        aabbs, torch.as_tensor(r), n))
+        cmin, cmax, torch.as_tensor(r)))
     assert lists.dtype == np.int32 and counts.dtype == np.int32
     assert lists.shape == entries.shape == (4, n) and far.shape == (512,)
     j = jnp.asarray(r)
@@ -79,114 +85,196 @@ def test_cull_reference_matches_jax_cull(n, seed):
     np.testing.assert_allclose(far, jf, rtol=1e-5)
 
 
-def cull_kernel_model(aabbs, rays8, n_box):
-    """What `cull_kernel` of csrc/cull.cu writes for every tile: thread s <
-    n_box stores slot s of the block's ordered list (all 128 slots ranked) and
-    entries in a row of n_box columns, thread 0 the count, every thread its
-    far."""
-    lists, counts, entries, far = block_cull_model(aabbs, rays8, n_box)
-    tiles = lists.shape[0]
-    out_l = np.full((tiles, n_box), -1, np.int32)
-    out_e = np.full((tiles, n_box), np.nan, np.float32)
-    for s in range(n_box):
-        out_l[:, s] = lists[:, s]
-        out_e[:, s] = entries[:, s]
-    return out_l, counts.astype(np.int32), out_e, far
+def cull_kernel_model(cmin, cmax, rays8):
+    """What `cull_kernel` of csrc/cull.cu writes, block by block of
+    CULL_TILES tiles, in float32 numpy:
+    1. warp 0 stages the live boxes (min x <= max x), compacted in ascending
+       id;
+    2. each real ray slab-tests the staged boxes in `_cull`'s arithmetic (a
+       NaN origin passes no box, entries clamped at +0, the entry BIG on a
+       miss), a warp of 32 rays keeps the least entry bits of each staged
+       box, and the ray writes its far (a NaN tmax gives a NaN far);
+    3. a tile's key of each box is the least of its four warps' minima, BIG
+       for an empty box;
+    4. slot s < n of a tile goes to its rank among the tile's n (key, id)
+       pairs, into a row of n columns; the count is the keys below BIG.
+    The tiles of the last block past the batch write nothing."""
+    f = np.float32
+    big = f(ti.BIG)
+    big_bits = big.view(np.uint32)
+    n, B = cmin.shape[0], rays8.shape[1]
+    tiles = B // ti.TILE
+    staged = np.flatnonzero(cmin[:, 0] <= cmax[:, 0])
+    lo, hi = cmin[staged], cmax[staged]
+    ids = np.arange(n)
+    lists = np.full((tiles, n), -1, np.int32)
+    entries = np.full((tiles, n), np.nan, f)
+    counts = np.full(tiles, -1, np.int32)
+    far = np.full(B, np.nan, f)
+    for block in range(-(-tiles // CULL_TILES)):
+        real = [t for t in range(block * CULL_TILES, (block + 1) * CULL_TILES) if t < tiles]
+        r = slice(real[0] * ti.TILE, (real[-1] + 1) * ti.TILE)
+        o, d, tmax = rays8[0:3, r], rays8[3:6, r], rays8[6, r]
+        sane = ~np.isnan(o).any(0)
+        tn = np.full((tmax.shape[0], staged.size), -big, f)
+        tf = np.full((tmax.shape[0], staged.size), big, f)
+        with np.errstate(over="ignore", invalid="ignore"):
+            for a in range(3):
+                safe = np.where(np.abs(d[a]) > f(1e-12), d[a],
+                                np.where(d[a] >= 0, f(1e-12), f(-1e-12))).astype(f)
+                inv = (f(1.0) / safe)[:, None]
+                t0 = (lo[None, :, a] - o[a][:, None]) * inv
+                t1 = (hi[None, :, a] - o[a][:, None]) * inv
+                tn = np.fmax(tn, np.fmin(t0, t1))
+                tf = np.fmin(tf, np.fmax(t0, t1))
+            hit = sane[:, None] & (tn <= tf) & (tf > 0) & (tn < tmax[:, None])
+        e = np.where(hit, np.where(tn > 0, tn, f(0.0)), big).astype(f).view(np.uint32)
+        last = np.where(hit, tf, -big).max(axis=1, initial=-big)
+        far[r] = np.where(np.isnan(tmax), tmax, np.fmin(last, tmax))
+        wmin = e.reshape(4 * len(real), 32, staged.size).min(axis=1)   # a row per warp
+        key = np.full((len(real), n), big_bits, np.uint32)
+        key[:, staged] = wmin.reshape(len(real), 4, staged.size).min(axis=1)
+        below = key[:, None, :] < key[:, :, None]
+        tie = (key[:, None, :] == key[:, :, None]) & (ids[None, :] < ids[:, None])
+        rank = (below | tie).sum(axis=2)                             # rank[tile, slot]
+        for k, t in enumerate(real):
+            lists[t, rank[k]] = ids
+            entries[t, rank[k]] = key[k].view(f)
+            counts[t] = (key[k] < big_bits).sum()
+    return lists, counts, entries, far
 
 
-@pytest.mark.parametrize("n,seed", [(128, 0), (32, 1), (64, 2), (5, 3)])
-@pytest.mark.parametrize("wide", [False, True])
-def test_cull_kernel_model_equals_cull_reference(n, seed, wide):
-    """Rows of n_box columns (what the route asks for) and of CP columns."""
+@pytest.mark.parametrize("n,seed", [(128, 0), (32, 1), (64, 2), (5, 3), (1, 4)])
+@pytest.mark.parametrize("tiles", [4, 5])
+def test_cull_kernel_model_equals_cull_reference(n, seed, tiles):
+    """Batches of one block and of a block and a tile (not a multiple of the
+    tiles a block), with a NaN origin, a NaN direction and a NaN tmax."""
     cmin, cmax = random_boxes(n, seed)
-    aabbs = ti.pack_aabbs(cmin, cmax)
-    r = seeded_rays(4 * ti.TILE, 70 + seed)
-    width = ti.CP if wide else n
-    m = cull_kernel_model(aabbs.numpy(), r, width)
-    want = [x.numpy() for x in ti.cull_reference(aabbs, torch.as_tensor(r), width)]
+    if n == 1:
+        cmin, cmax = cmin * 0.0 - 1.0, cmax * 0.0 + 1.0     # one live box
+    r = seeded_rays(tiles * ti.TILE, 70 + seed)
+    r[0, 3] = np.nan
+    r[4, 9] = np.nan
+    r[6, 12] = np.nan
+    m = cull_kernel_model(cmin.numpy(), cmax.numpy(), r)
+    want = [x.numpy() for x in ti.cull_reference(cmin, cmax, torch.as_tensor(r))]
     for got, w, what in zip(m, want, ("lists", "counts", "entries", "far")):
         np.testing.assert_array_equal(got, w, err_msg=what)
-    # the first n columns do not depend on the row width
-    narrow = [x.numpy() for x in ti.cull_reference(aabbs, torch.as_tensor(r), n)]
-    np.testing.assert_array_equal(want[0][:, :n], narrow[0])
-    np.testing.assert_array_equal(want[2][:, :n], narrow[2])
-    np.testing.assert_array_equal(want[1], narrow[1])
+    assert np.isnan(m[3][12]) and m[3][3] == -np.float32(ti.BIG)
+    assert m[1][0] > 0 and m[1][1] == 0 and m[1][2] == 0
 
 
 def test_cull_lists_takes_plain_version_on_cpu_and_checks_operands():
     cmin, cmax = random_boxes(16, 4)
-    aabbs = ti.pack_aabbs(cmin, cmax)
     r = torch.as_tensor(seeded_rays(384, 9))
     cuda.reset_launches()
-    got = ti.cull_lists(aabbs, r, 16)
-    want = ti.cull_reference(aabbs, r, 16)
+    got = ti.cull_lists(cmin, cmax, r)
+    want = ti.cull_reference(cmin, cmax, r)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    far = torch.empty(384)
+    out = ti.cull_lists(cmin, cmax, r, far=far)
+    assert out[3] is far and torch.equal(far, want[3])
     assert cuda.LAUNCHES["cull"] == 0
     with pytest.raises(ValueError, match="CUDA"):
-        ti.cull_kernel(aabbs, r, 16)
-    with pytest.raises(ValueError, match="at most 128"):
-        ti.cull_kernel(aabbs, r, 129)
+        ti.cull_kernel(cmin, cmax, r)
+    big = cmin[:1].repeat(129, 1)
+    with pytest.raises(ValueError, match="1 to 128 boxes"):
+        ti.cull_kernel(big, big, r)
+    with pytest.raises(ValueError, match="1 to 128 boxes"):
+        ti.cull_kernel(cmin[:0], cmax[:0], r)
     with pytest.raises(ValueError, match="multiple of 128"):
-        ti.cull_kernel(aabbs, r[:, :100], 16)
+        ti.cull_kernel(cmin, cmax, r[:, :100])
+
+
+def test_cull_lists_chooses_by_device_and_box_count(monkeypatch):
+    """Kernel K for rays on the card and 1 to 128 boxes; the plain version
+    for rays on the CPU and for more boxes. The choice reads the device and
+    the box count only, never a failure."""
+    calls = []
+    monkeypatch.setattr(ti, "cull_kernel", lambda *a: calls.append("kernel"))
+    monkeypatch.setattr(ti, "cull_reference", lambda *a: calls.append("plain"))
+    card, host = SimpleNamespace(is_cuda=True), SimpleNamespace(is_cuda=False)
+    for n, on in ((1, card), (128, card), (129, card), (5, host), (129, host)):
+        ti.cull_lists(torch.zeros(n, 3), torch.zeros(n, 3), on)
+    assert calls == ["kernel", "kernel", "plain", "plain", "plain"]
+
+
+def pytorch_cull_walk(scene, walk):
+    """The list walk's operands with the lists of `_cull` itself on the same
+    rays: int32 lists and counts, the entries, far in the rays' row 7."""
+    *head, _, _, _, r = walk
+    boxes = ((scene.super_min, scene.super_max) if ti._is_super(walk)
+             else (scene.cluster_min, scene.cluster_max))
+    lists, counts, entries, far = ti._cull(TV3(r[0], r[1], r[2]), TV3(r[3], r[4], r[5]),
+                                           r[6], *boxes)
+    return (*head, lists.to(torch.int32), counts.to(torch.int32), entries.contiguous(),
+            torch.cat([r[:7], far[None]]))
 
 
 @pytest.mark.parametrize("levels,name", [
     *[(lv, n) for lv in ("flat", "two_level") for n in CASES]])
 def test_cull_kernel_route_equals_default_path(monkeypatch, name, levels):
-    """Queries with `CULL_KERNEL` on: the walk's operands equal the default
-    path's (int32 lists of the same width, the same far) and so do the
-    results, and the PyTorch cull is reached only through `cull_reference`."""
+    """`_prep`'s lists come from `cull_lists`, once a query: its operands
+    equal those made with `_cull` itself (int32 lists of n columns, the same
+    entries and far), for closest-hit and any-hit queries."""
     if levels == "two_level":
         monkeypatch.setattr(ti, "SUPER_MIN_C", 0)
     ts = scenes(name)[1]
     o, d, t_max = rays(333, CASES[name][1], seed=21)
     _, (to, td) = both_v3(o, d)
     t_max = torch.as_tensor(t_max)
-    want = (ti.find_closest_soa(ts, to, td, T_MIN, t_max),
-            ti.occluded_soa(ts, to, td, T_MIN, t_max.clamp(max=1.5)))
-    lw, *_ = ti._prep(ts, to, td, T_MIN, t_max, anyhit=False)
-    kw, *_ = ti._prep(ts, to, td, T_MIN, t_max, anyhit=False, cull_kernel=True)
-    assert len(kw) == len(lw)
-    for a, b in zip(kw, lw):
-        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
     calls = []
     real = ti.cull_lists
-    monkeypatch.setattr(ti, "cull_lists", lambda *a: calls.append(1) or real(*a))
-    monkeypatch.setattr(ti, "CULL_KERNEL", True)
-    got = (ti.find_closest_soa(ts, to, td, T_MIN, t_max),
-           ti.occluded_soa(ts, to, td, T_MIN, t_max.clamp(max=1.5)))
+    monkeypatch.setattr(ti, "cull_lists",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    for anyhit, t_far in ((False, t_max), (True, t_max.clamp(max=1.5))):
+        walk, *_ = ti._prep(ts, to, td, T_MIN, t_far, anyhit=anyhit)
+        assert ti._is_super(walk) == (levels == "two_level")
+        want = pytorch_cull_walk(ts, walk)
+        assert len(walk) == len(want)
+        for a, b in zip(walk, want):
+            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
     assert len(calls) == 2
-    assert torch.equal(got[0][0], want[0][0]) and torch.equal(got[0][1], want[0][1])
-    assert torch.equal(got[1], want[1])
 
 
-def test_cull_kernel_route_refuses_both_flags_and_too_many_boxes(monkeypatch):
+def test_more_than_128_boxes_take_the_pytorch_cull(monkeypatch):
+    """129 cluster boxes on the flat path: `_prep` culls them with `_cull`
+    (kernel K takes at most 128) into the same operands; the fused route,
+    which culls only inside its kernels, raises."""
     ts = scenes("soup")[1]
-    o, d, t_max = rays(100, CASES["soup"][1], seed=2)
+    o, d, t_max = rays(300, CASES["soup"][1], seed=2)
     _, (to, td) = both_v3(o, d)
-    monkeypatch.setattr(ti, "CULL_KERNEL", True)
-    monkeypatch.setattr(ti, "FUSED_CULL", True)
-    with pytest.raises(ValueError, match="at most one"):
-        ti.find_closest_soa(ts, to, td, T_MIN, torch.as_tensor(t_max))
-    with pytest.raises(ValueError, match="at most one"):
-        ti.occluded_soa(ts, to, td, T_MIN, torch.as_tensor(t_max))
-    monkeypatch.setattr(ti, "FUSED_CULL", False)
-    # 129 boxes on the flat path: the route raises, as the fused one does
     monkeypatch.setattr(ti, "SUPER_MIN_C", 1 << 20)
     big = ts.replace(cluster_min=ts.cluster_min[:1].repeat(129, 1),
                      cluster_max=ts.cluster_max[:1].repeat(129, 1))
+    culls = []
+    real = ti._cull
+    monkeypatch.setattr(ti, "_cull", lambda *a: culls.append(a[3].shape[0]) or real(*a))
+    walk, *_ = ti._prep(big, to, td, T_MIN, torch.as_tensor(t_max), anyhit=False)
+    assert culls == [129] and walk[-4].shape == (3, 129)
+    want = pytorch_cull_walk(big, walk)
+    assert all(torch.equal(a, b) for a, b in zip(walk, want))
+    assert int(walk[-3].max()) > 0
     with pytest.raises(ValueError, match="at most 128 boxes"):
-        ti._prep(big, to, td, T_MIN, torch.as_tensor(t_max), anyhit=False,
-                 cull_kernel=True)
-    assert ti.CULL_KERNEL is True
-    monkeypatch.undo()
-    assert ti.CULL_KERNEL is False and ti.FUSED_CULL is False   # the defaults
+        ti._prep(big, to, td, T_MIN, torch.as_tensor(t_max), anyhit=False, fused=True)
+    assert ti.FUSED_CULL is False   # the default
+
+
+def model_cull_lists(cmin, cmax, rays, far=None):
+    """`cull_lists` with `cull_kernel_model` in place of kernel K."""
+    lists, counts, entries, f = (torch.as_tensor(x) for x in cull_kernel_model(
+        cmin.detach().numpy(), cmax.detach().numpy(), rays.numpy()))
+    if far is not None:
+        far.copy_(f)
+        f = far
+    return lists, counts, entries, f
 
 
 @pytest.mark.parametrize("levels", ["flat", "two_level"])
 def test_cull_kernel_render_equals_default_and_matches_jax(monkeypatch, levels):
-    """32x32 x 2 spp through the compacted loop: the same bits as the port's
-    default path, and the JAX render within the path tolerance."""
+    """32x32 x 2 spp through the compacted loop with the kernel's model as
+    the cull: the same bits as the default path, and the JAX render within
+    the path tolerance."""
     if levels == "two_level":
         monkeypatch.setattr(ti, "SUPER_MIN_C", 0)
     W = H = 32
@@ -195,7 +283,7 @@ def test_cull_kernel_render_equals_default_and_matches_jax(monkeypatch, levels):
     render = lambda: TP.render_image(ts, tcam, W, H, 2,  # noqa: E731
                                      trng.root_key(7, "cpu"), cfg)
     want = render()
-    monkeypatch.setattr(ti, "CULL_KERNEL", True)
+    monkeypatch.setattr(ti, "cull_lists", model_cull_lists)
     got = render()
     assert torch.equal(got, want) and float(want.mean()) > 0.01
     if levels == "flat":
@@ -208,9 +296,11 @@ def test_cull_kernel_render_equals_default_and_matches_jax(monkeypatch, levels):
 
 
 def test_cull_kernel_gradients_equal_default(monkeypatch):
-    """The gradient of the mean image with the route on, bit for bit."""
+    """The gradient of the mean image to albedo and vertices with the
+    kernel's model as the cull: bit for bit the default path's, and within
+    rtol 1e-3 / atol 1e-5 of `jax.grad`'s."""
     W = H = 16
-    _, ts, tcam = cornell(W, H)
+    jcs, ts, tcam = cornell(W, H)
     cfg = TP.PathTracerConfig(max_depth=3)
 
     def grads():
@@ -221,7 +311,16 @@ def test_cull_kernel_gradients_equal_default(monkeypatch):
         return [x.grad for x in leaves]
 
     want = grads()
-    monkeypatch.setattr(ti, "CULL_KERNEL", True)
+    monkeypatch.setattr(ti, "cull_lists", model_cull_lists)
     got = grads()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert float(want[0].abs().max()) > 0
+    js = jcs.scene
+
+    def loss(a, v):
+        s = js.replace(mat_albedo=a, tri_v0=v)
+        return jnp.mean(JP.render_image(s, jcs.camera, W, H, 1, jax.random.key(3),
+                                        JP.PathTracerConfig(max_depth=3, remat=False)))
+
+    for g_j, g in zip(jax.grad(loss, argnums=(0, 1))(js.mat_albedo, js.tri_v0), got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(g_j), rtol=1e-3, atol=1e-5)

@@ -323,7 +323,7 @@ def test_model_matches_jax_closest_impl():
     np.testing.assert_allclose(t[:n].numpy()[hit], t_j[hit], rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("route", ["list", "fused", "cull_kernel"])
+@pytest.mark.parametrize("route", ["list", "fused"])
 @pytest.mark.parametrize("two_level", [False, True])
 def test_walk_kind_is_stated(soup, monkeypatch, route, two_level):
     """`_is_super` reads the second operand's shape (the (C, 3) cluster boxes
@@ -334,8 +334,7 @@ def test_walk_kind_is_stated(soup, monkeypatch, route, two_level):
     if two_level:
         monkeypatch.setattr(oi, "SUPER_MIN_C", 0)
     o, d, t_max = soup_rays(256, seed=3, anyhit=False)
-    walk, *_ = oi._prep(soup, o, d, T_MIN, t_max, anyhit=False,
-                        fused=route == "fused", cull_kernel=route == "cull_kernel")
+    walk, *_ = oi._prep(soup, o, d, T_MIN, t_max, anyhit=False, fused=route == "fused")
     assert oi._is_super(walk) == two_level and oi._is_fused(walk) == (route == "fused")
     want = {(False, False): (oi.closest_hit, oi.any_hit),
             (True, False): (oi.closest_super_hit, oi.any_super_hit),

@@ -15,16 +15,17 @@ tile whose rays each ask for another child, a NaN ray, a dead tile, every
 ray blocked in the first child, a ray that asks for all 16; and of D, bit
 for bit, with H bit-equal to D: the same fan-out, NaN ray and dead tile,
 every lane hitting every ray, ties across children and superclusters, the
-nearest of 16 stacked children last, a hit at exactly tmax); on the CPU
-the same inputs of D against what they are built to give, and a
-step-by-step model of D's pair-parallel walk against its plain version;
+nearest of 16 stacked children last, a hit at exactly tmax, a negative
+t_min whose answer lies behind the origin); on the CPU the same inputs of D
+against what they are built to give, and a step-by-step model of D's
+pair-parallel walk against its plain version;
 the gather (C)
 at ragged sizes, with clamped indices and as a pure unpack, bit for bit;
 the fused-cull searches (F, G,
 H, I) bit for bit against their plain versions and against A, B, D, E fed by
-the PyTorch cull on the same rays; the cull kernel (K) bit for bit against
-`cull_reference`, and the list walks fed by it against the same walks fed by
-the PyTorch cull; the counting walk and the walk without early exit bit for
+the PyTorch cull on the same rays; the cull kernel (K, the cull of `_prep`
+on the card) bit for bit against `cull_reference` and `_cull` on 1 to 128
+boxes, and the list walks fed by it against the same walks fed by `_cull`; the counting walk and the walk without early exit bit for
 bit against A and against their step-by-step plain versions; the scatter-add (J)
 bit for bit against `scatter_rows_ordered_reference` (its own sum order), and J
 and `index_add_` (float atomics) each within 1e-5 of the sum of |terms| of a
@@ -141,10 +142,8 @@ def test_wrappers_take_plain_versions_on_cpu():
         oi.occluded_soa(ts, o, d, T_MIN, t_max)
         oi.find_closest_soa(big, o, d, T_MIN, t_max)
         oi.occluded_soa(big, o, d, T_MIN, t_max)
-    with mock.patch.object(oi, "CULL_KERNEL", True):
-        oi.find_closest_soa(ts, o, d, T_MIN, t_max)
-        oi.occluded_soa(ts, o, d, T_MIN, t_max)
     walk, *_ = oi._prep(ts, o, d, T_MIN, t_max, anyhit=False)
+    oi.cull_lists(ts.cluster_min, ts.cluster_max, walk[-1])
     oi.closest_dbg_hit(*walk, T_MIN)
     oi.closest_full_hit(*walk, T_MIN)
     assert cuda.LAUNCHES == {"closest": 0, "anyhit": 0, "unpack": 0,
@@ -185,9 +184,9 @@ def test_kernel_entry_points_refuse_cpu_tensors():
         oi.fused_closest_kernel(*walk, T_MIN)
     with pytest.raises(ValueError, match="CUDA"):
         oi.fused_anyhit_kernel(*walk, T_MIN)
-    with pytest.raises(ValueError, match="CUDA"):
-        oi.cull_kernel(walk[1], walk[2], ts.cluster_min.shape[0])
     walk, *_ = oi._prep(ts, o, d, T_MIN, t_max, anyhit=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        oi.cull_kernel(ts.cluster_min, ts.cluster_max, walk[-1])
     with pytest.raises(ValueError, match="CUDA"):
         oi.closest_dbg_kernel(*walk, T_MIN)
     with pytest.raises(ValueError, match="CUDA"):
@@ -369,31 +368,47 @@ def assert_cull_equal(got, want):
         assert torch.equal(g, w), what
 
 
+def cull_boxes(walk, scene):
+    """The boxes the cull of `walk` took: superclusters or clusters."""
+    return ((scene.super_min, scene.super_max) if oi._is_super(walk)
+            else (scene.cluster_min, scene.cluster_max))
+
+
+def pytorch_cull_walk(scene, walk):
+    """The list walk's operands with the lists of `_cull` itself on the same
+    rays: int32 lists and counts, the entries, far in the rays' row 7."""
+    *head, _, _, _, r = walk
+    lists, counts, entries, far = oi._cull(V3(r[0], r[1], r[2]), V3(r[3], r[4], r[5]),
+                                           r[6], *cull_boxes(walk, scene))
+    return (*head, lists.to(torch.int32), counts.to(torch.int32), entries.contiguous(),
+            torch.cat([r[:7], far[None]]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("two_level,name", [
     *[(lv, c) for lv in (False, True) for c in CASES], (True, "bumpy")])
 @pytest.mark.parametrize("n", [100, 1000])
 def test_cull_kernel_matches_plain_version(card, monkeypatch, name, two_level, n):
-    """K bit for bit against `cull_reference` (rows of n_box and of CP
-    columns), and A, B, D, E fed by K against the same walks fed by the
-    PyTorch cull; ~10% dead rays, non-aligned batches."""
+    """K, the cull of `_prep` on the card, bit for bit against
+    `cull_reference` and against `_cull` itself, and A, B, D, E fed by K
+    against the same walks fed by `_cull`; ~10% dead rays, non-aligned
+    batches."""
     if two_level:
         monkeypatch.setattr(oi, "SUPER_MIN_C", 0)
     spec, origin = BUMPY if name == "bumpy" else CASES[name]
     ts = compile_scene(spec(), device=card).scene
     o, d, t_max = rays(n, origin, seed=n, device=card, aimed=name == "bumpy")
     for anyhit, t_far in ((False, t_max), (True, t_max * 0.4)):
-        lw, *_ = oi._prep(ts, o, d, T_MIN, t_far, anyhit=anyhit)
-        kw, *_ = oi._prep(ts, o, d, T_MIN, t_far, anyhit=anyhit, cull_kernel=True)
-        assert len(kw) == len(lw) and oi._is_super(kw) == two_level
+        cuda.reset_launches()
+        kw, *_ = oi._prep(ts, o, d, T_MIN, t_far, anyhit=anyhit)
+        assert cuda.LAUNCHES["cull"] == 1 and oi._is_super(kw) == two_level
+        lw = pytorch_cull_walk(ts, kw)
         for a, b in zip(kw, lw):
             assert a.dtype == b.dtype and torch.equal(a.nan_to_num(), b.nan_to_num())
-        fw, *_ = oi._prep(ts, o, d, T_MIN, t_far, anyhit=anyhit, fused=True)
-        n_box = lw[-4].shape[1]
-        for width in (n_box, oi.CP):
-            got = oi.cull_kernel(fw[-2], fw[-1], width)
-            torch.cuda.synchronize()
-            assert_cull_equal(got, oi.cull_reference(fw[-2], fw[-1], width))
+        boxes = cull_boxes(kw, ts)
+        got = oi.cull_kernel(*boxes, kw[-1])
+        torch.cuda.synchronize()
+        assert_cull_equal(got, oi.cull_reference(*boxes, kw[-1]))
         closest, anyh = oi._searches(lw)
         fn = anyh if anyhit else closest
         out_k, out_l = fn(*kw, T_MIN), fn(*lw, T_MIN)
@@ -402,50 +417,109 @@ def test_cull_kernel_matches_plain_version(card, monkeypatch, name, two_level, n
             assert torch.equal(a, b)
 
 
+def random_boxes(n, seed, device, empty_frac=0.2):
+    """n boxes (n, 3), some of them flat and some empty (the +-3e38
+    sentinels)."""
+    rs = np.random.default_rng(seed)
+    c = rs.uniform(-1.0, 1.0, (n, 3))
+    h = rs.uniform(0.0, 0.4, (n, 3)) * (rs.random((n, 3)) > 0.1)
+    cmin, cmax = (c - h).astype(np.float32), (c + h).astype(np.float32)
+    empty = rs.random(n) < empty_frac
+    empty[0] = False
+    cmin[empty], cmax[empty] = 3e38, -3e38
+    return torch.as_tensor(cmin, device=device), torch.as_tensor(cmax, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5, 32, 64, 128])
+@pytest.mark.parametrize("tiles", [1, 5, 4097])
+def test_cull_kernel_on_random_boxes(card, n, tiles):
+    """K bit for bit against `cull_reference` on 1 to 128 seeded boxes (some
+    flat, some empty) and batches of 1, 5 and 4,097 tiles (none a multiple of
+    the kernel's tiles a block): ~10% dead rays, some axis-aligned, a dead
+    tile among the boxes, a tile that misses every box, a NaN origin, a NaN
+    direction and a NaN tmax."""
+    cmin, cmax = random_boxes(n, n, card)
+    B = tiles * oi.TILE
+    rs = np.random.default_rng(tiles)
+    o = rs.uniform(-1.5, 1.5, (3, B)).astype(np.float32)
+    d = rs.normal(size=(3, B)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    d[:, 7::11] = np.float32([[0.0], [-1.0], [0.0]])
+    tmax = np.where(rs.random(B) < 0.1, 0.0, rs.uniform(0.2, 5.0, B)).astype(np.float32)
+    tmax[::5] = 1e8
+    if tiles > 1:
+        tmax[128:256] = 0.0                   # a dead tile among the boxes
+        o[:, 256:384] += 50.0                 # a tile that misses every box
+        d[:, 256:384] = np.float32([[1.0], [0.0], [0.0]])
+    o[0, 3], d[1, 9], tmax[12] = np.nan, np.nan, np.nan
+    r = torch.as_tensor(np.concatenate([o, d, tmax[None], np.zeros((1, B), np.float32)]),
+                        device=card)
+    cuda.reset_launches()
+    got = oi.cull_kernel(cmin, cmax, r)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["cull"] == 1
+    want = oi.cull_reference(cmin, cmax, r)
+    assert_cull_equal(got[:3], want[:3])
+    assert torch.equal(got[3].nan_to_num(nan=-7.0), want[3].nan_to_num(nan=-7.0))
+    assert got[3][12].isnan() and got[3][3] == -oi.BIG and int(got[1][0]) > 0
+    if tiles > 1:
+        assert int(got[1][2]) == 0 and (got[3][128:256] <= 0).all()
+    far = torch.empty(B, device=card)
+    assert oi.cull_kernel(cmin, cmax, r, far=far)[3] is far
+    assert torch.equal(far.nan_to_num(nan=-7.0), want[3].nan_to_num(nan=-7.0))
+
+
 @pytest.mark.cuda
 def test_cull_kernel_dead_tile_nan_origin_nan_tmax(card):
     """A tile of dead rays (far capped at tmax = 0), a NaN origin (passes no
-    box) and a NaN tmax (a NaN far): all as `_cull`."""
+    box) and a NaN tmax (a NaN far): all as `_cull`, through `_prep`."""
     ts = scene_on("soup", card)
     o, d, t_max = rays(512, CASES["soup"][1], seed=4, device=card, dead_frac=0.0)
     t_max[128:256] = 0.0
     o.x[300] = float("nan")
     t_max[400] = float("nan")
     d.y[401] = 0.0
-    fw, *_ = oi._prep(ts, o, d, T_MIN, t_max, anyhit=False, fused=True)
-    got = oi.cull_kernel(fw[-2], fw[-1], ts.cluster_min.shape[0])
-    want = oi.cull_reference(fw[-2], fw[-1], ts.cluster_min.shape[0])
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert torch.equal(got[2], want[2])
-    assert torch.equal(got[3].nan_to_num(nan=-7.0), want[3].nan_to_num(nan=-7.0))
-    assert (got[3][128:256] <= 0).all() and got[1][0] > 0
-    assert got[3][400].isnan() and got[3][300] == -oi.BIG
+    kw, *_ = oi._prep(ts, o, d, T_MIN, t_max, anyhit=False)
+    lw = pytorch_cull_walk(ts, kw)
+    for a, b in zip(kw[-4:-1], lw[-4:-1]):
+        assert torch.equal(a, b)
+    far = kw[-1][7]
+    assert torch.equal(far.nan_to_num(nan=-7.0), lw[-1][7].nan_to_num(nan=-7.0))
+    assert (far[128:256] <= 0).all() and kw[-3][0] > 0
+    assert far[400].isnan() and far[300] == -oi.BIG
 
 
 @pytest.mark.cuda
 def test_cull_kernel_route_launches_kernel_and_matches_list_path(card, monkeypatch):
-    """`CULL_KERNEL` sends the queries through K and the list walks, with the
-    default path's results; with `FUSED_CULL` too it raises."""
+    """A query on the card with at most 128 boxes launches K and never calls
+    `_cull`, with the results of the walks fed by `_cull`; more than 128
+    boxes take `_cull`, never K."""
     on = lambda v: v.map(lambda c: c.to(card))  # noqa: E731
+    culls = []
+    real_cull = oi._cull
+    monkeypatch.setattr(oi, "_cull", lambda *a: culls.append(1) or real_cull(*a))
     for spec, origin, names in (
             (CASES["soup"][0], CASES["soup"][1], ("cull", "closest", "anyhit")),
             (bumpy_sphere, BUMPY[1], ("cull", "closest_super", "anyhit_super"))):
         ts = compile_scene(spec(), device=card).scene
         o, d, t_max = rays(777, origin, seed=5, device="cpu", aimed=spec is bumpy_sphere)
         args = (ts, on(o), on(d), T_MIN, t_max.to(card))
-        want = oi.find_closest_soa(*args), oi.occluded_soa(*args[:4], args[4] * 0.4)
         cuda.reset_launches()
-        monkeypatch.setattr(oi, "CULL_KERNEL", True)
         got = oi.find_closest_soa(*args), oi.occluded_soa(*args[:4], args[4] * 0.4)
-        assert cuda.LAUNCHES["cull"] == 2
+        assert cuda.LAUNCHES["cull"] == 2 and not culls
         assert {k for k, v in cuda.LAUNCHES.items() if v} == set(names)
+        with mock.patch.object(oi, "cull_lists", oi.cull_reference):
+            want = oi.find_closest_soa(*args), oi.occluded_soa(*args[:4], args[4] * 0.4)
+        assert len(culls) == 2 and cuda.LAUNCHES["cull"] == 2
+        culls.clear()
         assert torch.equal(got[0][0], want[0][0]) and torch.equal(got[0][1], want[0][1])
         assert torch.equal(got[1], want[1])
-        monkeypatch.setattr(oi, "FUSED_CULL", True)
-        with pytest.raises(ValueError, match="at most one"):
-            oi.find_closest_soa(*args)
-        monkeypatch.setattr(oi, "FUSED_CULL", False)
-        monkeypatch.setattr(oi, "CULL_KERNEL", False)
+    big = torch.zeros((129, 3), device=card)
+    rays8 = torch.zeros((8, 128), device=card)
+    cuda.reset_launches()
+    oi.cull_lists(big, big + 1.0, rays8)
+    assert cuda.LAUNCHES["cull"] == 0 and len(culls) == 1
 
 
 @pytest.mark.cuda
@@ -881,11 +955,26 @@ def closest_case_walks(name, device, monkeypatch):
     return walk, fwalk, t_want, i_want
 
 
+def key_bits(t):
+    """`key_bits` of csrc/intersect_common.cuh: the bits of float32 t as
+    integers in the order of the floats (negative t too)."""
+    b = np.asarray(t, np.float32).view(np.uint32).astype(np.int64)
+    return np.where(b & 0x80000000, ~b & 0xFFFFFFFF, b | 0x80000000)
+
+
+def key_float(k):
+    """The float32 whose `key_bits` are k."""
+    k = np.asarray(k, np.int64)
+    return np.where(k & 0x80000000, k & 0x7FFFFFFF, ~k & 0xFFFFFFFF).astype(
+        np.uint32).view(np.float32)
+
+
 def pair_walk_model(walk, t_min):
     """The pair-parallel walk of kernel D step by step, on the CPU: per tile
-    a 64-bit key a ray ((t bits) << 32 | index, from (tmax, ~0)); per listed
-    supercluster the exit against max over rays of min(best, far), the
-    children each ray asks for (`refine_children` at its best from the key),
+    a 64-bit key a ray (`key_bits(t)` << 32 | index, from (tmax, ~0)); per listed
+    supercluster the exit against max over rays of min(best, far) (only with
+    t_min >= 0: the cull's entries and far bound the hits ahead of the
+    origin), the children each ray asks for (`refine_children` at its best from the key),
     then for each asked child and each ray listed for it the 128 lanes' tests,
     reduced a warp at a time (hits strictly inside (t_min, tmax), the least t
     bits, the lowest lane) and folded into the key by min. Returns (t, idx)
@@ -897,17 +986,16 @@ def pair_walk_model(walk, t_min):
     i_out = torch.empty(B, dtype=torch.int32)
     for tile in range(B // oi.TILE):
         r = rays[:, tile * oi.TILE:(tile + 1) * oi.TILE]
-        key = [(int(np.float32(x).view(np.uint32)) << 32) | 0xFFFFFFFF for x in r[6].numpy()]
+        key = [(int(key_bits(x)) << 32) | 0xFFFFFFFF for x in r[6].numpy()]
         for k in range(int(counts[tile])):
-            best = torch.as_tensor(np.asarray([kk >> 32 for kk in key], np.uint32)
-                                   .view(np.float32))
+            best = torch.as_tensor(key_float([kk >> 32 for kk in key]))
             limit = torch.fmin(best, r[7])
             worst = torch.where(limit.isnan(), -torch.inf, limit).max()
-            if not bool(entries[tile, k] <= worst):
+            if t_min >= 0 and not bool(entries[tile, k] <= worst):
                 break
             s = int(lists[tile, k])
             dead = r[6] <= t_min
-            asks = oi.refine_children(bounds[s:s + 1], r, best)[:, 0] & ~dead[:, None]
+            asks = oi.refine_children(bounds[s:s + 1], r, best, t_min)[:, 0] & ~dead[:, None]
             for j in range(oi.SUPER):
                 c = s * oi.SUPER + j
                 for q in asks[:, j].nonzero()[:, 0].tolist():
@@ -915,7 +1003,7 @@ def pair_walk_model(walk, t_min):
                     t, ok = oi._plane_terms(cols, tuple(comp[m, c][None] for m in range(12)))
                     t, ok = t[0], ok[0]
                     hit = ok & (t > t_min) & (t < r[6, q])
-                    bits = t.numpy().view(np.uint32).astype(np.int64)
+                    bits = key_bits(t.numpy() + np.float32(0.0))   # -0 as +0
                     for w in range(oi.TILE // 32):
                         h = hit[w * 32:(w + 1) * 32].numpy()
                         if not h.any():
@@ -924,9 +1012,9 @@ def pair_walk_model(walk, t_min):
                         least = int(b[h].min())
                         first = int(np.flatnonzero(h & (b == least))[0]) + w * 32
                         key[q] = min(key[q], (least << 32) | (c * oi.CLUSTER_SIZE + first))
-        hi = np.asarray([kk >> 32 for kk in key], np.uint32)
         lo = np.asarray([kk & 0xFFFFFFFF for kk in key], np.uint32)
-        t_out[tile * oi.TILE:(tile + 1) * oi.TILE] = torch.as_tensor(hi.view(np.float32))
+        t_out[tile * oi.TILE:(tile + 1) * oi.TILE] = torch.as_tensor(
+            key_float([kk >> 32 for kk in key]))
         i_out[tile * oi.TILE:(tile + 1) * oi.TILE] = torch.as_tensor(lo.view(np.int32))
     return t_out, i_out
 
@@ -980,16 +1068,64 @@ def test_pair_walk_model_matches_plain_version(monkeypatch):
     assert torch.equal(tm, t) and torch.equal(im, i)
 
 
-def test_two_level_closest_kernels_refuse_negative_t_min(monkeypatch):
-    """D and H order hits by the bits of t > t_min, so they take t_min >= 0
-    and raise otherwise, before any launch."""
-    walk, fwalk, _, _ = closest_case_walks("fan_out", "cpu", monkeypatch)
-    cuda.reset_launches()
-    with pytest.raises(ValueError, match="t_min >= 0"):
-        oi.closest_super_kernel(*walk, -1e-3)
-    with pytest.raises(ValueError, match="t_min >= 0"):
-        oi.fused_closest_super_kernel(*fwalk, float("nan"))
-    assert cuda.LAUNCHES["closest_super"] == cuda.LAUNCHES["fused_closest_super"] == 0
+def behind_case(device):
+    """Kernel D's input for the exit at t_min = -3: two superclusters, the
+    triangle of cluster 0 at z = 1 and that of cluster 16 at z = -1 (the
+    others far aside). Rays 0-126 run along +z from z = 0: cluster 0 ahead
+    at t = 1, cluster 16 behind at t = -1, which is the answer; ray 127 runs
+    along -z from z = 5: cluster 0 at t = 4, cluster 16 at t = 6. Only ray
+    127 enters supercluster 1 ahead, so the tile lists it second with entry
+    6, beyond max over rays of min(best, far) = 4 after supercluster 0: a
+    walk that exits there loses the hits behind rays 0-126."""
+    corners = [(0.0, 0.0, 1.0)] + [(50.0 + 3.0 * c, 50.0, 1.0) for c in range(15)]
+    corners += [(0.0, 0.0, -1.0)] + [(50.0 + 3.0 * c, 50.0, -1.0) for c in range(15)]
+    scene = hand_scene(corners, device)
+    xy = np.random.default_rng(7).uniform(0.05, 0.45, (oi.TILE, 2))
+    o, d, t_max = _along_z(xy, np.full(oi.TILE, 100.0), device)
+    o.z[127] = 5.0
+    d.z[127] = -1.0
+    t_want = np.full(oi.TILE, -1.0, np.float32)
+    t_want[127] = 4.0
+    i_want = np.full(oi.TILE, 16 * oi.CLUSTER_SIZE)
+    i_want[127] = 0
+    return (scene, o, d, t_max, -3.0, torch.as_tensor(t_want),
+            torch.as_tensor(i_want, dtype=torch.int32))
+
+
+def negative_t_min_walk(name, device, monkeypatch):
+    """D's and H's operands at a negative t_min (`SUPER_MIN_C` 0): the flat
+    walks' negative_t_min input as one supercluster, or `behind_case`."""
+    monkeypatch.setattr(oi, "SUPER_MIN_C", 0)
+    if name == "behind":
+        scene, o, d, t_max, t_min, *_ = behind_case(device)
+    else:
+        scene, o, d, t_max, t_min, _ = flat_case(name, device)
+    walk, *_ = oi._prep(scene, o, d, t_min, t_max, anyhit=False)
+    fwalk, *_ = oi._prep(scene, o, d, t_min, t_max, anyhit=False, fused=True)
+    assert oi._is_super(walk) and oi._is_super(fwalk) and t_min < 0
+    return walk, fwalk, t_min
+
+
+@pytest.mark.parametrize("name", ["negative_t_min", "behind"])
+def test_pair_walk_model_takes_a_negative_t_min(name, monkeypatch):
+    """On the CPU: the step-by-step model of D's walk equals
+    `closest_super_reference` bit for bit at t_min = -3, where hits behind
+    the origin count, so the exit between superclusters must not read the
+    cull's entries and far. On `behind_case` the exit would fire (the second
+    entry lies beyond every ray's min(best, far) after the first
+    supercluster) and drop the answer of rays 0-126."""
+    walk, _, t_min = negative_t_min_walk(name, "cpu", monkeypatch)
+    t, i = oi.closest_super_reference(*walk, t_min)
+    tm, im = pair_walk_model(walk, t_min)
+    assert torch.equal(tm, t) and torch.equal(im, i) and (i >= 0).all()
+    if name == "behind":
+        _, _, _, _, _, t_want, i_want = behind_case("cpu")
+        assert torch.equal(t[:oi.TILE], t_want) and torch.equal(i[:oi.TILE], i_want)
+        tri, bounds, lists, counts, entries, rays = walk
+        assert int(counts[0]) == 2
+        first = oi.closest_super_reference(tri, bounds, lists, counts.clamp(max=1),
+                                           entries, rays, t_min)[0]
+        assert float(entries[0, 1]) > float(torch.minimum(first, rays[7]).max())
 
 
 @pytest.mark.cuda
@@ -1170,6 +1306,26 @@ def test_flat_kernels_on_hand_built_inputs(card, name):
         torch.cuda.synchronize()
         assert torch.equal(occ, oi.anyhit_reference(*walk, t_min))
         assert torch.equal(oi.fused_anyhit_kernel(*fwalk, t_min), occ)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["negative_t_min", "behind"])
+def test_two_level_closest_kernels_take_a_negative_t_min(card, monkeypatch, name):
+    """D `torch.equal` to `closest_super_reference` and H to D at t_min = -3
+    (and with t_min NaN, where nothing is hit), on the negative_t_min input
+    as one supercluster and on `behind_case`, whose exit would drop the hits
+    behind the origin."""
+    walk, fwalk, t_min = negative_t_min_walk(name, card, monkeypatch)
+    for tm in (t_min, float("nan")):
+        t, i = oi.closest_super_kernel(*walk, tm)
+        torch.cuda.synchronize()
+        tp, ip = oi.closest_super_reference(*walk, tm)
+        assert torch.equal(t, tp) and torch.equal(i, ip)
+        th, ih = oi.fused_closest_super_kernel(*fwalk, tm)
+        assert torch.equal(th, t) and torch.equal(ih, i)
+    assert (ip < 0).all()
+    t, i = oi.closest_super_kernel(*walk, t_min)
+    assert (i >= 0).all()
 
 
 @pytest.mark.cuda
