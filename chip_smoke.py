@@ -58,9 +58,12 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    plain version (`cull_reference`), to the operands of the PyTorch cull
    (`_cull`) and to `_prep`'s, with its time by events and on the device, the
    PyTorch cull's and its bound. The instrumented walks
-   (closest_dbg, closest_full) on Cornell and on the soup: `(t, idx)` bit-equal
-   to closest's and to their step-by-step plain versions', `walked` equal to
-   the plain version's and never above the count.
+   (closest_dbg, closest_full: closest's walk with a counter, and with its
+   exit off) on Cornell and on the soup: `(t, idx)` bit-equal to closest's
+   and to their step-by-step plain versions', `walked` equal to the plain
+   version's and never above the count, each one's time by events and on the
+   device; on the soup also at t_min = -3, closest bit-equal to its plain
+   version and `walked` equal to the count (no exit behind the origin).
 3. Forward, Cornell: 256x256, 64 spp, depth 5, NEE + MIS + Russian roulette,
    compaction calibrated from `trace_stats` as the benchmark does. The image
    must be finite with a sane mean, the launch counts of closest, anyhit and
@@ -129,7 +132,7 @@ device. Imports no JAX.
 
     python3 chip_smoke.py --walks LABEL OUT_DIR
 
-times only the flat walks (A beside F, B beside G) on Cornell's primary,
+times only the flat walks (A beside F, B beside G, A beside M) on Cornell's primary,
 tile-ordered primary and shadow rays, the soup's two queries and the
 primary and sorted bounce-1 wavefronts of the walk profile's sphere, with
 their bounds and flat fan-outs, reached through `_prep` and `_searches`
@@ -139,10 +142,12 @@ fan-out; the cull kernel (K) on the rays and boxes of every one of those
 queries, by events and on the device, with its bound (`time_cull`: it calls
 K through the interface of the checkout it runs in); and the scatter-add
 (J) on the mesh's and Cornell's primary-hit rows, one row and the light
-rows of 8 and 2 lights, with its parts; one JSON line tagged LABEL. It saves
-hashes of A's, B's and K's outputs, D's and E's outputs and hashes of C's
-and J's in OUT_DIR or compares them with a run's saved there (a difference
-fails the run). To compare two checkouts on one
+rows of 8 and 2 lights, with its parts; and the instrumented walks (M) on
+every closest-hit query of `time_flat_walks`, by events and on the device,
+beside A's time and bound (`time_walk_stats`); one JSON line tagged LABEL.
+It saves hashes of A's, B's, K's and M's outputs, D's and E's outputs and
+hashes of C's and J's in OUT_DIR or compares them with a run's saved there
+(a difference fails the run). To compare two checkouts on one
 card, copy this script into the other one's root and run the two in turns
 (parent, change, change, parent) with the same OUT_DIR.
 
@@ -709,13 +714,16 @@ def compare_walk_stats(scene, walk, t_min, label, closest_out, timed):
         return {k: dict(max_abs_err=e) for k, e in errs.items()}
     bound = walk_bound(scene, walk, t_min, t_final=ta)
     live = (walk[-1][6] > t_min).reshape(-1, oi.TILE).sum(dim=1)
-    staged_full = int((live * counts).sum())
+    dbg = lambda: oi.closest_dbg_kernel(*walk, t_min)  # noqa: E731
+    full = lambda: oi.closest_full_kernel(*walk, t_min)  # noqa: E731
     out = {
         "closest_dbg": dict(max_abs_err=errs["closest_dbg"], plain_ms=dbg_plain_ms,
-                            ms=time_ms(lambda: oi.closest_dbg_kernel(*walk, t_min))),
+                            ms=time_ms(dbg), device_ms=kernel_device_ms(
+                                torch, dbg, "closest_stats_kernel<true>")),
         "closest_full": dict(max_abs_err=errs["closest_full"], plain_ms=full_plain_ms,
-                             ms=time_ms(lambda: oi.closest_full_kernel(*walk, t_min)),
-                             ray_cluster_pairs_staged=staged_full)}
+                             ms=time_ms(full), device_ms=kernel_device_ms(
+                                 torch, full, "closest_stats_kernel<false>"),
+                             ray_cluster_pairs_listed=int((live * counts).sum()))}
     for r in out.values():
         r.update(library_ms=None, **bound)
     return out
@@ -1371,8 +1379,8 @@ def time_walks(torch, dev, label, out_dir):
         torch.save(outputs, path)
     print(f"[{label}] " + json.dumps(rec))
     check(all(v for k, v in rec.items()
-              if k.startswith(("F equals", "G equals", "H equals", "I equals"))),
-          "a fused walk differs from its list walk")
+              if k.startswith(("F equals", "G equals", "H equals", "I equals", "M equals"))),
+          "a fused or instrumented walk differs from its list walk")
     check(all(rec.get("outputs equal to the saved run's", {}).values()),
           "the walks' outputs differ from the saved run's")
 
@@ -1412,8 +1420,9 @@ def time_flat_walks(torch, dev, t_min, rec, outputs):
     `flat_walk_inputs`, reached through `_prep` and `_searches` so that a
     parent checkout runs the same code: their times by CUDA events and each
     kernel's own device time (`kernel_device_ms`), F equal to A and G to B,
-    hashes of A's and B's outputs, the flat fan-out of each input, and
-    kernel K on each input's rays and boxes (`time_cull`)."""
+    hashes of A's and B's outputs, the flat fan-out of each input, kernel K
+    on each input's rays and boxes (`time_cull`) and, on the closest-hit
+    inputs, the instrumented walks (`time_walk_stats`)."""
     from mafrixraytracing_torch.ops import intersect as oi
 
     for name, scene, o, d, t_max, anyhit in flat_walk_inputs(torch, dev, t_min):
@@ -1442,6 +1451,30 @@ def time_flat_walks(torch, dev, t_min, rec, outputs):
             scene, lw, t_min, bound["ray_cluster_pairs"], None if anyhit else out[0])
         time_cull(torch, scene, lw, t_min, f"{name}{', any hit' if anyhit else ''}", rec,
                   outputs)
+        if not anyhit:
+            time_walk_stats(torch, lw, t_min, name, out, rec, outputs)
+
+
+def time_walk_stats(torch, walk, t_min, name, closest_out, rec, outputs):
+    """`--walks`: the instrumented walks (M) on one closest-hit list walk:
+    `(t, idx)` equal to A's (`closest_out`), the mean walked a tile, hashes of
+    `(t, idx, walked)` and of the full walk's `(t, idx)`, and each kernel's
+    time by CUDA events and on the device (`closest_stats_kernel<true>` and
+    `<false>`, the names of M's kernels before and after it took A's walk)."""
+    from mafrixraytracing_torch.ops import intersect as oi
+
+    dbg = oi.closest_dbg_kernel(*walk, t_min)
+    full = oi.closest_full_kernel(*walk, t_min)
+    outputs[f"M dbg {name}"] = sha(*dbg)
+    outputs[f"M full {name}"] = sha(*full)
+    rec[f"M equals A, {name}"] = all(torch.equal(x, y) for x, y in
+                                     zip(dbg[:2] + full, closest_out + closest_out))
+    rec[f"M walked a tile, {name}"] = float(dbg[2].float().mean())
+    for kind, fn, exit_on in (("dbg", oi.closest_dbg_kernel, "true"),
+                              ("full", oi.closest_full_kernel, "false")):
+        rec[f"M {kind} {name}"] = time_ms(lambda: fn(*walk, t_min))  # noqa: B023
+        rec[f"M {kind} {name}, device"] = kernel_device_ms(
+            torch, lambda: fn(*walk, t_min), f"closest_stats_kernel<{exit_on}>")  # noqa: B023
 
 
 def scatter_walk_inputs(torch, dev, mesh_P, mesh_idx):
@@ -1611,14 +1644,23 @@ def phase_kernels(torch, dev):
                              t_min, "soup")
     fused_as = fused_vs_list(soup, qo, qd, tmax_a, True, walk_sa, occ_s, t_min,
                              "soup")
-    # the instrumented walks on Cornell (timed, as closest is) and on the soup
+    # the instrumented walks on Cornell (timed, as closest is) and on the soup,
+    # also at t_min = -3, where hits behind the origin count and the walks
+    # have no exit
     stats = compare_walk_stats(scene, walk, t_min, "cornell primary", (t_k, idx), True)
     stats_s = compare_walk_stats(soup, walk_s, t_min, "soup", (t_s, idx_s), True)
+    walk_n, *_ = oi._prep(soup, qo, qd, -3.0, tmax_c, anyhit=False)
+    _, t_n, idx_n, _ = compare_closest(walk_n, -3.0, "soup, t_min = -3")
+    stats_n = compare_walk_stats(soup, walk_n, -3.0, "soup, t_min = -3", (t_n, idx_n), False)
+    check(torch.equal(oi.closest_dbg_kernel(*walk_n, -3.0)[2], walk_n[-3]),
+          "the counting walk exited at t_min = -3")
     for name in ("closest_dbg", "closest_full"):
         r, rs_ = stats[name], stats_s[name]
-        r["max_abs_err"] = max(r["max_abs_err"], rs_["max_abs_err"])
+        r["max_abs_err"] = max(r["max_abs_err"], rs_["max_abs_err"],
+                               stats_n[name]["max_abs_err"])
         print(f"  {name} on the soup (B = {walk_s[-1].shape[1]:,}): kernel "
-              f"{rs_['ms']:.4f} ms against closest {time_ms(lambda: oi.closest_kernel(*walk_s, t_min)):.4f} ms")
+              f"{rs_['ms']:.4f} ms ({rs_['device_ms']:.4f} on the device) against closest "
+              f"{time_ms(lambda: oi.closest_kernel(*walk_s, t_min)):.4f} ms")
     culls = [f.pop("cull") for f in (fused_c, fused_a, fused_cs, fused_as)]
     culls[0]["max_abs_err"] = max(c["max_abs_err"] for c in culls)
     print_cull(culls[0], f"Cornell primary, 1 box, B = {B:,}")

@@ -6,8 +6,8 @@
 // of the tile that ask for that cluster, whose records sit in shared memory.
 // The closest-hit walks keep each ray's best as a 64-bit integer key in
 // shared memory, lowered by atomicMin; the any-hit walks a byte a ray.
-// intersect_stats.cu keeps a walk that holds a ray a thread, for the
-// instrumented kernels alone.
+// The instrumented kernels (intersect_stats.cu) run the flat closest-hit
+// walk as it is, with its exit on or off, and read its count.
 //
 // A walk takes its tile's list, entries and count by pointer and value, so
 // the list may live in global memory (the cull ran before the walk, as
@@ -423,20 +423,28 @@ __device__ __forceinline__ void for_each_face(const FlatSmem& sm, Fn&& fn) {
   }
 }
 
-// The closest-hit walk over a tile's n listed clusters (kernels A and F).
-// `box` holds the clusters' boxes as stage_boxes lays them out. best_t and
-// best_i come back as the plain version's: the closest hit in (t_min, tmax),
-// smallest global index on ties; tmax and -1 on a miss.
-__device__ __forceinline__ void walk_closest(const float* __restrict__ tri, const float* box,
-                                             const int* list, const float* entry, int n,
-                                             const Ray& q, float t_min, float rel,
-                                             float abs_, ClosestFlatSmem& sm, float& best_t,
-                                             int& best_i) {
+// The closest-hit walk over a tile's n listed clusters (kernels A and F,
+// and the instrumented kernels M). `box` holds the clusters' boxes as
+// stage_boxes lays them out. best_t and best_i come back as the plain
+// version's: the closest hit in (t_min, tmax), smallest global index on
+// ties; tmax and -1 on a miss. Returns the number of listed clusters the walk
+// reached: k where the exit stopped it before cluster k, else n (0 for an
+// empty list). With EXIT false the walk never stops early: it reaches every
+// listed cluster, and the rays still ask for a cluster by their box test,
+// so (t, idx) are the same, since a cluster past the exit holds no closer
+// hit for any ray of the tile.
+template <bool EXIT = true>
+__device__ __forceinline__ int walk_closest(const float* __restrict__ tri, const float* box,
+                                            const int* list, const float* entry, int n,
+                                            const Ray& q, float t_min, float rel,
+                                            float abs_, ClosestFlatSmem& sm, float& best_t,
+                                            int& best_i) {
   if (n <= 0) {   // an empty list: every ray misses
     best_t = q.tmax;
     best_i = -1;
-    return;
+    return 0;
   }
+  int reached = n;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float ix = safe_inverse(q.dx), iy = safe_inverse(q.dy), iz = safe_inverse(q.dz);
   const bool dead = q.tmax <= t_min;
@@ -457,7 +465,10 @@ __device__ __forceinline__ void walk_closest(const float* __restrict__ tri, cons
     if (lane == 0) sm.red[warp] = worst;
     __syncthreads();
     worst = fmaxf(fmaxf(sm.red[0], sm.red[1]), fmaxf(sm.red[2], sm.red[3]));
-    if (ahead && !(entry[k] <= worst)) return 0;
+    if (EXIT && ahead && !(entry[k] <= worst)) {
+      reached = k;
+      return 0;
+    }
     const int kind = visit_kind(sm);
     return kind ? kind : -1;
   }, [&](const float (&cur)[COMP], int c, int kind) {
@@ -485,6 +496,7 @@ __device__ __forceinline__ void walk_closest(const float* __restrict__ tri, cons
   const unsigned long long key = sm.key[tid];
   best_t = key_float((unsigned)(key >> 32));
   best_i = (int)(unsigned)key;   // ~0u, which is -1, on a miss
+  return reached;
 }
 
 // The any-hit walk over a tile's n listed clusters (kernels B and G).

@@ -119,8 +119,8 @@ def lib() -> ctypes.CDLL:
         handle.mfx_fused_closest_super.argtypes = [P, P, P, P, I, I, I, F, F, F, P, P, P]
         handle.mfx_fused_anyhit_super.argtypes = [P, P, P, P, I, I, I, F, F, F, P, P]
         handle.mfx_cull.argtypes = [P, P, P, I, I, P, P, P, P, P]
-        handle.mfx_closest_dbg.argtypes = [P, P, P, P, P, I, I, F, P, P, P, P]
-        handle.mfx_closest_full.argtypes = [P, P, P, P, P, I, I, F, P, P, P]
+        handle.mfx_closest_dbg.argtypes = [P, P, P, P, P, P, P, I, I, F, F, F, P, P, P, P]
+        handle.mfx_closest_full.argtypes = [P, P, P, P, P, P, P, I, I, F, F, F, P, P, P]
         for fn in (handle.mfx_closest, handle.mfx_anyhit, handle.mfx_unpack,
                    handle.mfx_closest_super, handle.mfx_anyhit_super,
                    handle.mfx_scatter, handle.mfx_fused_closest,

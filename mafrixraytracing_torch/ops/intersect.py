@@ -39,12 +39,11 @@ than 128 boxes raise `ValueError`; the fused path never drops to the list
 path on its own.
 
 Two instrumented walks, `closest_dbg_kernel` and `closest_full_kernel`
-(`csrc/intersect_stats.cu`), compute kernel A's function on A's operands
-with the walk that holds a ray a thread and stages every cluster it visits:
-one with a counter of the clusters a tile staged, one without the early
-exit. Only `mafrixraytracing_torch.profile_walk` launches them; their plain
-versions (`closest_dbg_reference`, `closest_full_reference`) model that walk
-step by step.
+(`csrc/intersect_stats.cu`), run kernel A's own walk on A's operands: one
+with a counter of the listed clusters a tile reached before the early exit,
+one with the exit off. Only `mafrixraytracing_torch.profile_walk` launches
+them; their plain versions (`closest_dbg_reference`,
+`closest_full_reference`) model that walk step by step (`_walk_model`).
 
 Around them, as in the JAX package: mega triangles (huge walls and floors,
 excluded from the clusters) are tested densely first and cap `t_max`
@@ -415,13 +414,17 @@ def anyhit_super_reference(tri, bounds, lists, counts, entries, rays,
 
 def _walk_model(tri, lists, counts, entries, rays, t_min: float,
                 early_exit: bool):
-    """The instrumented kernels' walk (a ray a thread), step by step: at step
-    k every tile that is still walking tests its k-th listed cluster against
-    its 128 rays and keeps, per ray, the smallest (t, index) pair. With `early_exit` a tile stops at the
-    first k whose entry lies beyond the max over its rays of min(best t, far)
-    (a ray with a NaN there does not count, as in the kernel's `fmaxf`), else
-    at its count. Returns (t, idx, walked): A's outputs and, per tile, the
-    number of clusters staged."""
+    """The instrumented kernels' walk (kernel A's), step by step: at step k
+    every tile that is still walking tests its k-th listed cluster against
+    its 128 rays and keeps, per ray, the smallest (t, index) pair (A's box
+    tests only skip pairs that hold no closer hit, so they are not repeated).
+    With `early_exit` and t_min >= 0 a tile stops at the first k whose entry
+    lies beyond the max over its rays of min(best t, far) (a ray with a NaN
+    there does not count, as in the kernel's `fmaxf`), else at its count:
+    the cull's entries and far bound only the hits ahead of the origin, so
+    at t_min < 0 (or NaN) there is no exit, as in A. Returns (t, idx,
+    walked): A's outputs and, per tile, the number of listed clusters the
+    walk reached."""
     B = rays.shape[1]
     tiles = B // TILE
     dev = rays.device
@@ -435,7 +438,7 @@ def _walk_model(tri, lists, counts, entries, rays, t_min: float,
     chunk = max(1, _REF_PAIRS // (TILE * CLUSTER_SIZE))
     for k in range(int(counts.max()) if tiles else 0):
         active = active & (k < counts)
-        if early_exit:
+        if early_exit and t_min >= 0.0:
             limit = torch.fmin(best_t, far)
             worst = torch.where(limit.isnan(), -torch.inf, limit).amax(dim=1)
             active = active & (entries[:, k] <= worst)
@@ -466,18 +469,19 @@ def _walk_model(tri, lists, counts, entries, rays, t_min: float,
 def closest_dbg_reference(tri, cmin, cmax, lists, counts, entries, rays,
                           t_min: float):
     """Plain version of `closest_dbg_kernel`, on kernel A's operands (the
-    boxes unread): A's (t, idx) and, per tile, `walked` (tiles,) int32: how
-    many of its listed clusters the walk staged before its early exit. The
-    exit is tested before every cluster, so the number is exact and at most
-    `counts` (the TPU kernel tests every four clusters, so its number is a
-    multiple of four capped at the count)."""
+    boxes are A's culls and are not repeated): A's (t, idx) and, per tile,
+    `walked` (tiles,) int32: how many of its listed clusters the walk reached
+    before its early exit. The exit is tested before every cluster, so the
+    number is exact and at most `counts` (the TPU kernel tests every four
+    clusters, so its number is a multiple of four capped at the count). At
+    t_min < 0 (or NaN) there is no exit, as in A, and `walked` is `counts`."""
     return _walk_model(tri, lists, counts, entries, rays, t_min, True)
 
 
 def closest_full_reference(tri, cmin, cmax, lists, counts, entries, rays,
                            t_min: float):
     """Plain version of `closest_full_kernel`: kernel A's (t, idx) from a walk
-    that tests every listed cluster (no early exit)."""
+    that reaches every listed cluster (A's walk with its exit off)."""
     return _walk_model(tri, lists, counts, entries, rays, t_min, False)[:2]
 
 
@@ -581,28 +585,29 @@ def anyhit_kernel(tri, cmin, cmax, lists, counts, entries, rays, t_min: float):
 
 
 def closest_dbg_kernel(tri, cmin, cmax, lists, counts, entries, rays, t_min: float):
-    """Launch the counting walk (csrc/intersect_stats.cu) on kernel A's
-    operands, the boxes unread. Same contract as
+    """Launch the counting walk (csrc/intersect_stats.cu: kernel A's walk with
+    a counter) on kernel A's operands. Same contract as
     `closest_dbg_reference`: A's (t, idx) plus walked (tiles,) int32."""
     _check_walk_args(tri, cmin, cmax, lists, counts, entries, rays)
-    B = rays.shape[1]
+    B, C = rays.shape[1], tri.shape[0]
     t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
     i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
     walked = torch.empty((B // TILE,), dtype=torch.int32, device=rays.device)
-    cuda.launch("closest_dbg", tri, lists, counts, entries, rays, B, lists.shape[1],
-                float(t_min), t_out, i_out, walked)
+    cuda.launch("closest_dbg", tri, cmin, cmax, lists, counts, entries, rays, B, C,
+                float(t_min), REFINE_REL, REFINE_ABS, t_out, i_out, walked)
     return t_out, i_out, walked
 
 
 def closest_full_kernel(tri, cmin, cmax, lists, counts, entries, rays, t_min: float):
-    """Launch the walk without early exit (csrc/intersect_stats.cu) on kernel
-    A's operands. Same contract as `closest_full_reference`."""
+    """Launch the walk without early exit (csrc/intersect_stats.cu: kernel
+    A's walk with its exit off) on kernel A's operands. Same contract as
+    `closest_full_reference`."""
     _check_walk_args(tri, cmin, cmax, lists, counts, entries, rays)
-    B = rays.shape[1]
+    B, C = rays.shape[1], tri.shape[0]
     t_out = torch.empty((B,), dtype=torch.float32, device=rays.device)
     i_out = torch.empty((B,), dtype=torch.int32, device=rays.device)
-    cuda.launch("closest_full", tri, lists, counts, entries, rays, B, lists.shape[1],
-                float(t_min), t_out, i_out)
+    cuda.launch("closest_full", tri, cmin, cmax, lists, counts, entries, rays, B, C,
+                float(t_min), REFINE_REL, REFINE_ABS, t_out, i_out)
     return t_out, i_out
 
 

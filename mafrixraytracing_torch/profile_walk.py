@@ -1,5 +1,5 @@
 """Walk profile of the flat closest-hit search: what a tile's list holds, how
-much of it the walk stages, and what the cull and the early exit cost.
+much of it the walk reaches, and what the cull and the early exit cost.
 
     python3 -m mafrixraytracing_torch.profile_walk [--size N] [--cpu]
 
@@ -22,6 +22,14 @@ prints: the listed clusters a tile and the walked clusters a tile (mean,
 p50, p90, max), the times of the five, and whether K equals the PyTorch cull
 and both instrumented walks equal A bit for bit. The last line is one JSON object with all of it. `main()`
 returns that record and raises if an equality fails.
+
+The two instrumented walks are A's own walk: the counting walk is A's with a
+counter of the listed clusters each tile reaches before the exit, the walk
+without early exit is A's with the exit off (the rays still skip, by their
+box tests, the clusters they do not enter). So the full walk's time less the
+counting walk's is what A's exit saves. (Until the walks took A's walk, they
+held a ray a thread and staged every listed cluster for all 128 rays: the
+full walk's time was that walk's cost, not the exit's.)
 
 The two instrumented walks launch here and only here: no render path calls
 them. Times are device milliseconds (CUDA events) on a card; with `--cpu` the

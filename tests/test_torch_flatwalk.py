@@ -29,8 +29,8 @@ from mafrixraytracing_torch.scene.compiler import compile_scene
 from mafrixraytracing_tpu.ops import intersect_pallas as ip
 from mafrixraytracing_tpu.scene.compiler import compile_scene as jcompile
 
-from test_torch_kernels import (CLOSEST_CASES, FLAT_CASES, closest_case, flat_case, flat_walks,
-                                pair_walk_model)
+from test_torch_kernels import (CLOSEST_CASES, FLAT_CASES, behind_case, closest_case, flat_case,
+                                flat_walks, pair_walk_model)
 from test_torch_super import both_v3, carry_over, soup_spec
 
 T_MIN = 1e-3
@@ -203,6 +203,9 @@ def test_model_on_hand_built_inputs(name):
         assert (i[:n] >= 0).all() and (i[:n] < 2).all()
         if name == "flat_quad":
             assert ((t[:n] - 2.0).abs() <= 1e-5).all()
+    elif name == "behind":      # the hits behind the origin, and ray 127's ahead
+        *_, t_want, i_want = behind_case("cpu")
+        assert torch.equal(t, t_want) and torch.equal(i, i_want)
     else:   # negative_t_min
         assert (i == 0).all()
         assert (t[:64] == 5.0).all() and (t[64:127] == -2.0).all() and t[127] == 0.0

@@ -1149,7 +1149,7 @@ def test_closest_super_kernel_on_hand_built_inputs(card, monkeypatch, name):
 # --- the flat walks (A, B, F, G) on hand-built inputs -----------------------
 
 FLAT_CASES = CLOSEST_CASES + ["widening", "grazing", "flat_quad", "flat_quad_oblique",
-                              "negative_t_min"]
+                              "negative_t_min", "behind"]
 
 # NEE shadow rays of a Cornell wavefront (o, d, tmax after the mega test) that
 # start a few 1e-5 above the plane of the light and cross it at a grazing
@@ -1203,12 +1203,18 @@ def flat_case(name, device):
     0-63 from z = 0 meet cluster 0 (z = 5) ahead, rays 64-126 start at z = 7,
     between cluster 0 behind them (t = -2) and cluster 1 (z = 9) ahead, and
     ray 127 starts in cluster 0's plane and runs along -z (a hit at t = -0,
-    cluster 1 at t = -4 beyond t_min)."""
+    cluster 1 at t = -4 beyond t_min). behind: `behind_case` on the flat path
+    (32 clusters): the tile lists clusters 0 and 16 with entries 1 and 6, and
+    a walk that exits on them at t_min = -3 loses the hits behind rays
+    0-126."""
     rs = np.random.default_rng(len(name) + 100)
     t_min = T_MIN
     if name in CLOSEST_CASES:
         scene, o, d, t_max, dead_tile, _, _ = closest_case(name, device)
         return scene, o, d, t_max, t_min, dead_tile
+    if name == "behind":
+        scene, o, d, t_max, t_min, _, _ = behind_case(device)
+        return scene, o, d, t_max, t_min, False
     if name == "widening":
         corners = np.asarray([(50.0 + 3.0 * c, 50.0, 5.0) for c in range(16)] * 2,
                              np.float32).reshape(2, 16, 3).transpose(1, 0, 2).copy()
@@ -1285,8 +1291,9 @@ def test_flat_kernels_on_hand_built_inputs(card, name):
     every ray of one cluster, equal t in two clusters, the nearest cluster
     last, a hit at exactly tmax, a NaN ray, a dead tile that lists every
     cluster, a box test that passes only by its widening, a flat cluster hit
-    straight on and obliquely, a negative t_min; any hit at tmax and just
-    beyond each ray's closest hit."""
+    straight on and obliquely, a negative t_min (twice: the second input
+    loses the hits behind the origin to a walk that exits); any hit at tmax
+    and just beyond each ray's closest hit."""
     scene, o, d, t_max, t_min, dead_tile = flat_case(name, card)
     walk, fwalk = flat_walks(scene, o, d, t_max, t_min, False, dead_tile)
     t, i = oi.closest_kernel(*walk, t_min)
@@ -1298,6 +1305,8 @@ def test_flat_kernels_on_hand_built_inputs(card, name):
     td, id_, walked = oi.closest_dbg_kernel(*walk, t_min)
     assert torch.equal(td, t) and torch.equal(id_, i)
     assert torch.equal(walked, oi.closest_dbg_reference(*walk, t_min)[2])
+    tu, iu = oi.closest_full_kernel(*walk, t_min)
+    assert torch.equal(tu, t) and torch.equal(iu, i)
     n = o.x.shape[0]
     t_near = torch.where(i[:n] >= 0, t[:n].abs() * 1.01 + 1e-3, t_max)
     for t_far in (t_max, t_near):
@@ -1306,6 +1315,36 @@ def test_flat_kernels_on_hand_built_inputs(card, name):
         torch.cuda.synchronize()
         assert torch.equal(occ, oi.anyhit_reference(*walk, t_min))
         assert torch.equal(oi.fused_anyhit_kernel(*fwalk, t_min), occ)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["negative_t_min", "behind"])
+def test_walk_stats_kernels_take_a_negative_t_min(card, name):
+    """The instrumented walks (M) at t_min = -3 and NaN on the flat
+    negative_t_min and behind inputs: `(t, idx)` `torch.equal` to A's and to
+    their plain versions', and `walked` to the plain version's, which is the
+    count: with t_min < 0 the exit does not read the cull's entries and far,
+    so every listed cluster is reached."""
+    scene, o, d, t_max, t_min, dead_tile = flat_case(name, card)
+    walk, _ = flat_walks(scene, o, d, t_max, t_min, False, dead_tile)
+    for tm in (t_min, float("nan")):
+        t, i = oi.closest_kernel(*walk, tm)
+        td, id_, walked = oi.closest_dbg_kernel(*walk, tm)
+        tf, if_ = oi.closest_full_kernel(*walk, tm)
+        torch.cuda.synchronize()
+        assert torch.equal(td, t) and torch.equal(id_, i)
+        assert torch.equal(tf, t) and torch.equal(if_, i)
+        tp, ip, wp = oi.closest_dbg_reference(*walk, tm)
+        assert torch.equal(tp, t) and torch.equal(ip, i)
+        assert torch.equal(walked, wp) and torch.equal(walked, walk[-3])
+        tq, iq = oi.closest_full_reference(*walk, tm)
+        assert torch.equal(tq, t) and torch.equal(iq, i)
+    assert (ip < 0).all()
+    t, i, _ = oi.closest_dbg_kernel(*walk, t_min)
+    assert (i >= 0).all()
+    if name == "behind":
+        *_, t_want, i_want = behind_case(card)
+        assert torch.equal(t, t_want.to(card)) and torch.equal(i, i_want.to(card))
 
 
 @pytest.mark.cuda

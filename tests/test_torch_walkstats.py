@@ -7,8 +7,10 @@ and the JAX package's search in interpret mode within its contract
 (`tests/test_pallas.py:26-42`: idx equal, t within rtol 1e-4 / atol 1e-5).
 `walked` is held against an independent count: the first k at which the
 k-th entry lies beyond the tile's limit after the dense closest hit over the
-first k listed clusters. The CUDA kernels are held against these plain
-versions and against A on the card in tests/test_torch_kernels.py.
+first k listed clusters. At t_min < 0 (and NaN) the walks have no exit, as
+A has none there, and `walked` is the count. The CUDA kernels are held
+against these plain versions and against A on the card in
+tests/test_torch_kernels.py.
 """
 import json
 
@@ -25,6 +27,7 @@ from mafrixraytracing_tpu.scene.compiler import compile_scene as jcompile
 
 from mafrixraytracing_tpu.scene import spec as JS
 
+from test_torch_kernels import behind_case, flat_case, flat_walks
 from test_torch_super import both_v3, carry_over
 
 T_MIN = 1e-3
@@ -115,6 +118,36 @@ def test_walked_equals_independent_count(soup, tiles, seed, dead):
     walked = ti.closest_dbg_reference(*walk, T_MIN)[2]
     np.testing.assert_array_equal(walked.numpy(), independent_walked(walk))
     assert (walked > 0).any()
+
+
+@pytest.mark.parametrize("name", ["negative_t_min", "behind"])
+def test_walks_take_a_negative_t_min(name):
+    """At t_min = -3 and NaN the two plain versions equal `closest_reference`
+    bit for bit and `walked` is the count: the cull's entries and far bound
+    only the hits ahead of the origin, so the exit is off, as in A. On the
+    flat `behind` input the exit would fire before cluster 16 (its entry 6
+    lies beyond every ray's min(best, far) after cluster 0) and lose the hits
+    behind rays 0-126."""
+    scene, o, d, t_max, t_min, dead_tile = flat_case(name, "cpu")
+    walk, _ = flat_walks(scene, o, d, t_max, t_min, False, dead_tile)
+    *head, lists, counts, entries, rays = walk
+    for tm in (t_min, float("nan")):
+        ta, ia = ti.closest_reference(*walk, tm)
+        td_, id_, walked = ti.closest_dbg_reference(*walk, tm)
+        tf, if_ = ti.closest_full_reference(*walk, tm)
+        assert torch.equal(td_, ta) and torch.equal(id_, ia)
+        assert torch.equal(tf, ta) and torch.equal(if_, ia)
+        assert torch.equal(walked, counts)
+    assert (ia < 0).all()
+    ta, ia = ti.closest_reference(*walk, t_min)
+    assert (ia >= 0).all() and t_min < 0
+    if name == "behind":
+        *_, t_want, i_want = behind_case("cpu")
+        assert torch.equal(ta, t_want) and torch.equal(ia, i_want)
+        assert lists[0, :2].tolist() == [0, 16] and int(counts[0]) == 2
+        first = ti.closest_reference(*head, lists, counts.clamp(max=1), entries, rays,
+                                     t_min)[0]
+        assert float(entries[0, 1]) > float(torch.fmin(first, rays[7]).max())
 
 
 def test_dead_tile_walks_nothing_and_unsorted_rays_walk_more(soup):
