@@ -125,6 +125,26 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    depend on the pixel order); `render_spp_sharded` finite; one `fit` of 2
    steps, 2 microbatches, with `mesh=` (the gradients all-reduced through
    NCCL, asynchronously per microbatch) bit-equal to the same fit without.
+12. The rasterizer, the transforms and the live preview (plain PyTorch: no
+   TPU kernel is on this path; its backward sums through J): the mesh's
+   36,996 faces at the demo's 512x512, perspective-correct, chunks of 64, a
+   checker texture, the demo's two lights, under a model matrix composed on
+   the card of `scale` (to a bounding radius of 0.6), `rotation_y(150)` and
+   `translation`. Prints s/frame by CUDA events (a warm-up, then 3), the
+   kernel launches of a frame and their device time (torch.profiler), the
+   peak device memory and the covered pixels; the image must be finite,
+   cover 5-95% of the pixels and be `torch.equal` across two frames. One
+   backward of the mean image to the texture and the vertices: finite,
+   non-zero, bit-equal when repeated, J launched twice, its peak memory.
+   The same call at 64x64 on the CPU: the faces drawn equal on at least
+   99.9% of the pixels, colours within 1e-4 where they are; the model
+   matrix, its inverse, `apply_point` and `apply_normal` within 1e-6 of the
+   CPU's. `examples.render_cornell.main` at 256x256 x 4 spp with
+   `--preview-port 0`, then a `LivePreview` fed with a `FilmState` of 4
+   passes: the served `/frame.png` equal to the file and to
+   `encode_png(film.to_bytes())`, its IHDR 256x256, the page naming
+   frame.png; `examples.rasterize.main` at 512x512 on the mesh's OBJ writes
+   its PNG (copied to the temp directory).
 
 Then, on lines of their own: the kernels' JSON record, the nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA
@@ -824,13 +844,9 @@ def write_mesh_obj(path, scale=1.0):
         f.writelines("f %d/%d %d/%d %d/%d\n" % (x, x, y, y, z, z) for x, y, z in faces)
 
 
-def mesh_spec(width, height, textured=False, scale=1.0):
-    """The mesh scene: the OBJ above, written to the temp directory and
-    loaded through the port's OBJ loader and `mesh_scene`, which frames and
-    lights it by its size, so `scale` changes the units and not the picture."""
-    from mafrixraytracing_torch.materials.texture import checker_texture
-    from mafrixraytracing_torch.scene.assets import mesh_scene
-
+def mesh_obj(scale=1.0) -> str:
+    """The path of the mesh's OBJ at `scale` in the temp directory, written
+    there at the first call."""
     name = "mafrix_torch_mesh36996" + (f"_x{scale:g}" if scale != 1.0 else "")
     path = os.path.join(tempfile.gettempdir(), name + ".obj")
     if not os.path.exists(path):
@@ -838,7 +854,17 @@ def mesh_spec(width, height, textured=False, scale=1.0):
         part = f"{path}.{os.getpid()}.part"
         write_mesh_obj(part, scale)
         os.replace(part, path)
-    spec = mesh_scene(path, width, height)
+    return path
+
+
+def mesh_spec(width, height, textured=False, scale=1.0):
+    """The mesh scene: the OBJ above, written to the temp directory and
+    loaded through the port's OBJ loader and `mesh_scene`, which frames and
+    lights it by its size, so `scale` changes the units and not the picture."""
+    from mafrixraytracing_torch.materials.texture import checker_texture
+    from mafrixraytracing_torch.scene.assets import mesh_scene
+
+    spec = mesh_scene(mesh_obj(scale), width, height)
     if textured:
         spec.materials[0].texture_id = 0
         spec.textures.append(checker_texture(tiles=16))
@@ -1505,16 +1531,19 @@ def scatter_walk_inputs(torch, dev, mesh_P, mesh_idx):
              torch.randint(0, 2, (B,), generator=gen, device=dev), 2)]
 
 
-def profiled_ms(torch, fn, part_of, reps: int = 10) -> dict:
+def profiled_ms(torch, fn, part_of, reps: int = 10, host: bool = True) -> dict:
     """Device ms a call of fn() spends in each part, from torch.profiler's
     kernel records over `reps` calls: `part_of(kernel name)` names the part a
     kernel belongs to, or None to leave it out. Reads kernel names only, so
-    it measures any checkout's kernels."""
+    it measures any checkout's kernels. `host=False` records the device's
+    activity alone, for a call of tens of thousands of operators, whose host
+    records would take many times the call's own time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -2160,7 +2189,7 @@ def phase_entry_points(torch):
           "a motion-blur image has non-finite values")
     check(cols[1] > cols[0] + 2, "motion blur did not spread the sphere")
 
-    path = os.path.join(tempfile.gettempdir(), "mafrix_torch_mesh36996.obj")
+    path = mesh_obj()
     t0 = time.perf_counter()
     check(native.available(), f"the native OBJ parser did not build: "
                               f"{native.build_error()}")
@@ -2300,6 +2329,289 @@ def phase_parallel(torch, dev):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+RASTER = 512                # the rasterizer demo's default frame side
+RASTER_SMALL = 64           # side of the card-against-CPU raster comparison
+RASTER_RADIUS = 0.6         # the mesh's bounding radius under the demo's camera:
+                            # at radius 1 it would fill the frame
+PREVIEW = 256               # side and passes of the progressive Cornell
+PREVIEW_SPP = 4             # render behind the live preview
+
+
+def raster_inputs(torch, dev, arrays):
+    """The rasterizer's operands on `dev`: the mesh's `arrays` (vertices,
+    faces, normals, uvs), a model matrix built there that scales it to a
+    bounding radius of RASTER_RADIUS, turns it by 150 degrees about y and
+    moves it a little, the demo's camera and a checker texture."""
+    import numpy as np
+
+    from mafrixraytracing_torch.core import transform as T
+    from mafrixraytracing_torch.materials.texture import checker_texture
+    from mafrixraytracing_torch.raster import pipeline as R
+
+    v, faces, normals, uvs = (torch.as_tensor(a, device=dev) for a in arrays)
+    s = RASTER_RADIUS / float(np.linalg.norm(arrays[0], axis=1).max())
+    model = T.compose(T.scale(s, device=dev), T.rotation_y(150.0, device=dev),
+                      T.translation((0.0, -0.05, 0.0), device=dev))
+    view = R.look_at((0.0, 0.3, 2.2), (0.0, 0.0, 0.0), device=dev)
+    proj = R.perspective(40.0, 1.0, near=0.2, far=20.0, device=dev)
+    tex = torch.as_tensor(checker_texture(tiles=16), device=dev)
+    return v, faces, normals, uvs, model, view, proj, tex
+
+
+def raster(args, n):
+    """The demo's frame of `args` at n x n (perspective-correct, chunks of 64,
+    its two lights and background) through `rasterize`'s own code, with the
+    indices its two gathers read: -> (image, best, texel), best each pixel's
+    face (-1 where none) and texel the texture row it samples."""
+    from mafrixraytracing_torch.examples.rasterize import BACKGROUND, LIGHTS
+    from mafrixraytracing_torch.raster import pipeline as R
+
+    return R._frame(*args, n, n, LIGHTS, 64, True, True, BACKGROUND)
+
+
+def raster_grads(args, n):
+    """(image, best, texel, d/dvertices, d/dtexture) of the mean image of
+    `raster(args, n)`."""
+    v = args[0].clone().requires_grad_(True)
+    tex = args[7].clone().requires_grad_(True)
+    img, best, texel = raster((v,) + args[1:7] + (tex,), n)
+    img.mean().backward()
+    return img.detach(), best, texel, v.grad, tex.grad
+
+
+def png_size(png: bytes):
+    """(width, height) from a PNG's signature and IHDR; None if malformed."""
+    import struct
+
+    if png[:8] != b"\x89PNG\r\n\x1a\n" or png[12:16] != b"IHDR":
+        return None
+    return struct.unpack(">II", png[16:24])
+
+
+def phase_raster_preview(torch, dev, card):
+    """The rasterizer at the demo's 512x512 on the mesh of phase 2, its
+    gradient, the card against the CPU, the live preview of a progressive
+    Cornell render, and the two example entry points."""
+    import shutil
+    import urllib.request
+
+    import numpy as np
+
+    from mafrixraytracing_torch.core import rng
+    from mafrixraytracing_torch.core import transform as T
+    from mafrixraytracing_torch.examples import rasterize as raster_demo
+    from mafrixraytracing_torch.examples import render_cornell
+    from mafrixraytracing_torch.film.film import FilmState
+    from mafrixraytracing_torch.film.image import encode_png
+    from mafrixraytracing_torch.film.preview import LivePreview
+    from mafrixraytracing_torch.integrator import path as P
+    from mafrixraytracing_torch.ops import cuda
+    from mafrixraytracing_torch.scene.builtin import cornell_box
+    from mafrixraytracing_torch.scene.compiler import compile_scene
+
+    n = RASTER
+    t_phase = t0 = time.perf_counter()
+    arrays = raster_demo.mesh_arrays(mesh_obj())
+    args = raster_inputs(torch, dev, arrays)
+    check(all(a.is_cuda for a in args), "the raster operands are not on the card")
+    print(f"  mesh36996 arrays and operands ready in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+
+    # forward at full width
+    names = []
+
+    def every_kernel(name):
+        names.append(name)
+        return "frame"
+
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launches()
+        img, best, texel = raster(args, n)
+        torch.cuda.synchronize()
+        peak_fwd = torch.cuda.max_memory_allocated() / 2**30
+        ours = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        ms = time_ms(lambda: raster(args, n), reps=3)
+        same = torch.equal(img, raster(args, n)[0])
+        t1 = time.perf_counter()
+        busy_ms = profiled_ms(torch, lambda: raster(args, n), every_kernel, reps=1,
+                              host=False)["frame"]
+        s_prof = time.perf_counter() - t1
+    covered = float((best >= 0).float().mean())
+    print(f"  raster mesh36996 {n}x{n} (perspective-correct, chunk 64, checker texture, "
+          f"the demo's two lights): {ms / 1e3:.4f} s/frame by CUDA events (mean of 3 after "
+          f"a warm-up), {len(names)} kernel launches a frame, {busy_ms / 1e3:.4f} s of them "
+          f"on the device, peak device memory {peak_fwd:.3f} GiB, covered pixels "
+          f"{int((best >= 0).sum())} ({covered:.4f}), two frames torch.equal={same}, "
+          f"the port's kernels launched {ours} ({card}); profiling took "
+          f"{s_prof:.2f} s, the forward block {time.perf_counter() - t0:.2f} s")
+    check(bool(torch.isfinite(img).all()), "the raster image has non-finite values")
+    check(0.05 <= covered <= 0.95, f"the raster covers {covered:.4f} of the pixels")
+    check(same, "two raster frames differ")
+    check(not ours, "the raster forward launched a kernel of the port")
+    hit = (best >= 0).reshape(n, n, 1)
+    bg = torch.tensor(raster_demo.BACKGROUND, device=dev)
+    check(bool(torch.where(hit, img, bg).eq(img).all()), "the background is off")
+
+    # gradient of the mean image to the texture and the vertices
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    t1 = time.perf_counter()
+    gv, gt = raster_grads(args, n)[3:]
+    torch.cuda.synchronize()
+    s_bwd = time.perf_counter() - t1
+    peak_bwd = torch.cuda.max_memory_allocated() / 2**30
+    ours = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    gv2, gt2 = raster_grads(args, n)[3:]
+    same_g = torch.equal(gv, gv2) and torch.equal(gt, gt2)
+    print(f"  raster forward + backward of the mean image to the texture and the vertices: "
+          f"{s_bwd:.4f} s (host clock, first call), peak device memory {peak_bwd:.3f} GiB, "
+          f"|d/dvertices|max {float(gv.abs().max()):.4g}, |d/dtexture|max "
+          f"{float(gt.abs().max()):.4g}, vertices with a gradient "
+          f"{int((gv.abs().sum(1) > 0).sum())}, repeated gradient bit-equal={same_g}, "
+          f"the port's kernels launched {ours} ({card})")
+    for name, g in (("vertices", gv), ("texture", gt)):
+        check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+              f"the raster gradient to the {name} is not finite and non-zero")
+    check(same_g, "a repeated raster gradient differs")
+    check(ours.get("scatter", 0) == 2, "the raster backward did not sum through kernel J")
+    check(peak_bwd < 8.0, f"the raster backward took {peak_bwd:.2f} GiB: not O(pixels)")
+
+    # kernel J on the index sets of the backward's two gathers, against its
+    # plain version: the winners' corners (16 columns; every background pixel
+    # gathers face 0) and the sampled texels (3 columns)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    corners = args[1].long()[best.clamp(min=0)].reshape(-1)
+    tex_rows = args[7].shape[0] * args[7].shape[1]
+    for idx, rows, cols, what in ((corners, args[0].shape[0], 16, "corners"),
+                                  (texel, tex_rows, 3, "texels")):
+        heavy = float(torch.bincount(idx, minlength=rows).topk(3).values.sum()) / idx.numel()
+        print(f"  J on the raster's {what} ({n}x{n}): the 3 most gathered rows take "
+              f"{heavy:.4f} of the index set")
+        compare_scatter(torch, idx, rows, cols, f"raster {what} {n}x{n}", gen,
+                        rows_layout=True)
+
+    # the card against the CPU, through the same code: the image, the
+    # winners, the texels and the gradients at RASTER_SMALL
+    m = RASTER_SMALL
+    cpu_args = raster_inputs(torch, "cpu", arrays)
+    t2 = time.perf_counter()
+    img_c, best_c, texel_c, gv_c, gt_c = raster_grads(cpu_args, m)
+    s_cpu = time.perf_counter() - t2
+    img_d, best_d, texel_d, gv_d, gt_d = (t.cpu() for t in raster_grads(args, m))
+    s_cmp = time.perf_counter() - t2
+    agree = best_c == best_d
+    same_texel = agree & ((best_c < 0) | (texel_c == texel_d))
+    err = float((img_c - img_d).abs().reshape(-1, 3)[agree].max())
+    print(f"  raster {m}x{m}, card against CPU: {int((~agree).sum())} of {agree.numel()} "
+          f"pixels show another face, {int((agree & ~same_texel).sum())} another texel, "
+          f"max |colour difference| {err:.3g} where they show the same face "
+          f"(the CPU took {s_cpu:.2f} s, both {s_cmp:.2f} s)")
+    check(float(agree.float().mean()) >= 0.999, "the card and the CPU draw other faces")
+    check(float(same_texel.float().mean()) >= 0.999,
+          "the card and the CPU sample other texels")
+    check(err <= 1e-4, "the card's and the CPU's colours differ")
+    # A pixel's gradient reaches its face's three vertices and its texel
+    # alone, so rows that a pixel of another face or texel reaches are left
+    # out. Tolerance 1e-2 |g_cpu| + 2e-2 median|g_cpu|, well below a typical
+    # gradient: the vertex gradient goes through 1 / area of faces below a
+    # pixel, so an ulp's change in the vertex stage moves it by a part of the
+    # median gradient (the texture's by far less).
+    faces_c = cpu_args[1].long()
+    off_v = torch.zeros(gv_c.shape[0], dtype=torch.bool)
+    for b in (best_c[~same_texel], best_d[~same_texel]):
+        off_v[faces_c[b[b >= 0]].reshape(-1)] = True
+    off_t = torch.zeros(gt_c.shape[0] * gt_c.shape[1], dtype=torch.bool)
+    for t in (texel_c[~same_texel], texel_d[~same_texel]):
+        off_t[t] = True
+    for name, c, d, off in (("vertices", gv_c, gv_d, off_v),
+                            ("texture", gt_c.reshape(-1, 3), gt_d.reshape(-1, 3), off_t)):
+        typical = float(c.abs()[c.abs() > 0].median())
+        diff = (c - d).abs()[~off]
+        tol = 1e-2 * c.abs()[~off] + 2e-2 * typical
+        print(f"  raster {m}x{m} gradient to the {name}, card against CPU: max |difference| "
+              f"{float(diff.max()):.3g} against a median |gradient| of {typical:.3g} "
+              f"(max of |difference| / tolerance {float((diff / tol).max()):.3g}), "
+              f"{int(off.sum())} rows left out")
+        check(bool((diff <= tol).all()),
+              f"the card's and the CPU's raster gradients to the {name} differ")
+    v_c, v_d = cpu_args[0], args[0]
+    model_c, model_d = cpu_args[4], args[4]
+    for name, c, d in (
+            ("the model matrix", model_c, model_d),
+            ("inverse", T.inverse(model_c), T.inverse(model_d)),
+            ("apply_point", T.apply_point(model_c, v_c), T.apply_point(model_d, v_d)),
+            ("apply_normal", T.apply_normal(model_c, cpu_args[2]),
+             T.apply_normal(model_d, args[2]))):
+        diff = float((c - d.cpu()).abs().max())
+        print(f"  {name} on the card against the CPU: max |difference| {diff:.3g}")
+        check(torch.allclose(c, d.cpu(), rtol=1e-6, atol=1e-6),
+              f"{name} differs between the card and the CPU")
+
+    # the live preview of a progressive render, and the two entry points
+    tmp = tempfile.mkdtemp(prefix="mafrix_torch_preview_")
+    try:
+        out = os.path.join(tmp, "cornell.png")
+        t3 = time.perf_counter()
+        rc = render_cornell.main([out, "--size", f"{PREVIEW}x{PREVIEW}", "--spp",
+                                  str(PREVIEW_SPP), "--preview-port", "0"])
+        s_main = time.perf_counter() - t3
+        with open(out, "rb") as f:
+            written = f.read()
+        check(rc == 0 and png_size(written) == (PREVIEW, PREVIEW),
+              "render_cornell with a live preview did not write its PNG")
+
+        t5 = time.perf_counter()
+        cs = compile_scene(cornell_box(PREVIEW, PREVIEW))
+        key, config = rng.root_key(0), P.PathTracerConfig()
+        film = FilmState.create(PREVIEW, PREVIEW)
+        with torch.no_grad():
+            for i in range(PREVIEW_SPP):
+                film = film.add_frame(P.render_sample_batch(
+                    cs.scene, cs.camera, PREVIEW, PREVIEW, i, key, config)
+                    .reshape(PREVIEW, PREVIEW, 3))
+        frame = film.to_bytes()
+        check(frame.is_cuda, "the film is not on the card")
+        live = os.path.join(tmp, "live.png")
+        preview = LivePreview(live, http_port=0)
+        try:
+            preview.update(frame)
+            url = f"http://127.0.0.1:{preview.port}"
+            served = urllib.request.urlopen(url + "/frame.png", timeout=10).read()
+            page = urllib.request.urlopen(url + "/", timeout=10).read()
+        finally:
+            preview.close()
+        with open(live, "rb") as f:
+            on_disk = f.read()
+        same_png = served == on_disk == encode_png(frame)
+        print(f"  render_cornell.main {PREVIEW}x{PREVIEW} x {PREVIEW_SPP} spp with "
+              f"--preview-port 0: {s_main:.2f} s, wrote {len(written)} bytes; a LivePreview "
+              f"fed with the FilmState of {PREVIEW_SPP} passes: served /frame.png "
+              f"({len(served)} bytes) equal to the file and to encode_png(film.to_bytes())="
+              f"{same_png}, PNG size {png_size(served)}, the page names frame.png="
+              f"{b'frame.png' in page}, the same bits as the example's file="
+              f"{served == written} (the LivePreview's part {time.perf_counter() - t5:.2f} s)")
+        check(same_png, "the served frame differs from the file or from encode_png")
+        check(png_size(served) == (PREVIEW, PREVIEW), "the served PNG's header is off")
+        check(b"frame.png" in page, "the preview page does not name frame.png")
+
+        out = os.path.join(tmp, "raster.png")
+        t4 = time.perf_counter()
+        rc = raster_demo.main([out, "--obj", mesh_obj()])
+        with open(out, "rb") as f:
+            written = f.read()
+        print(f"  rasterize.main {RASTER}x{RASTER} on mesh36996: {time.perf_counter() - t4:.2f} s "
+              f"with the OBJ's parse ({card})")
+        check(rc == 0 and png_size(written) == (RASTER, RASTER),
+              "the rasterizer demo did not write its PNG")
+        png = os.path.join(tempfile.gettempdir(), "mafrix_torch_raster.png")
+        shutil.copyfile(out, png)
+        print(f"  wrote {png}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2368,6 +2680,9 @@ def main() -> int:
 
     print("[11] the multi-process path on one card")
     phase_parallel(torch, dev)
+
+    print("[12] the rasterizer, the transforms and the live preview")
+    phase_raster_preview(torch, dev, info["nvidia_smi"])
 
     pallas = "mafrixraytracing_tpu/ops/intersect_pallas.py"
     fused_cu = "mafrixraytracing_torch/csrc/intersect_fused.cu"

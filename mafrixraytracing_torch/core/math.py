@@ -1,7 +1,8 @@
 """Scalar-column math with finite gradients.
 
 Port of the parts of `mafrixraytracing_tpu/core/math.py` that the SoA hot
-path uses. Every function works on tensors of any shape, elementwise.
+path and the rasterizer use. Every function works on tensors of any shape,
+elementwise (`normalize` over the last axis).
 """
 from __future__ import annotations
 
@@ -16,6 +17,16 @@ def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
     `inf * 0 = NaN` cotangent."""
     pos = x > 0.0
     return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
+def normalize(v: torch.Tensor) -> torch.Tensor:
+    """Zero-safe normalize over the last axis: a vector of length ~0 comes
+    back unchanged (reference `Core/Point.fs:52-56`). `1 / sqrt`, not
+    `rsqrt`, so that it rounds as the JAX package's does."""
+    n2 = torch.sum(v * v, dim=-1, keepdim=True)
+    scale = torch.where(n2 > EPS * EPS,
+                        1.0 / torch.sqrt(torch.clamp(n2, min=EPS * EPS)), 1.0)
+    return v * scale
 
 
 def fresnel_dielectric(cos_i, eta_i, eta_t):

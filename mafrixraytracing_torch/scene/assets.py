@@ -13,6 +13,7 @@ import os
 
 import numpy as np
 
+from mafrixraytracing_torch.film.image import read_image
 from mafrixraytracing_torch.io.obj import load_obj
 from mafrixraytracing_torch.scene import spec as S
 
@@ -30,11 +31,8 @@ def load_texture(path: str):
     vertical flip it does at load happens at *sample* time here, see
     `materials.texture.sample_atlas`.)"""
     try:
-        from PIL import Image
-
-        im = Image.open(path).convert("RGB")
-        return np.asarray(im, np.float32) / 255.0
-    except Exception:
+        return read_image(path)
+    except (ImportError, OSError):
         return None
 
 
