@@ -145,6 +145,34 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    `encode_png(film.to_bytes())`, its IHDR 256x256, the page naming
    frame.png; `examples.rasterize.main` at 512x512 on the mesh's OBJ writes
    its PNG (copied to the temp directory).
+13. The last four entry points, as a user calls them, each path's kernel
+   launches read around it: `examples.render_spheres.main` at its 400x200
+   and depth 8, 16 of its 64 passes (a 400x200 PNG; closest, anyhit,
+   unpack and cull launched); `examples.baseline_matrix.main(["--quick"])`,
+   its Cornell row at 256x256 x 16 spp (one finite record with the card's
+   name and power limit), then its `run` on the mesh of phase 2 at
+   1024x1024 in 16 passes of 1 spp (the two-level walks, not the flat
+   ones); `examples.fit_inverse.main` at its own sizes and steps on its
+   seeded stand-in for spot (5,856 faces): each fit's last loss below its
+   first, the albedo, vertex and ground height errors smaller fitted than
+   at the start, the set-up of the three fits printed, nine PNGs, scatter
+   launched; `python -m mafrixraytracing_torch.bench_scaling` at its
+   defaults in a process of its own (a world of one on a machine with one
+   card, and the line that says why there is no efficiency line): the
+   render and train-step lines with the card's name, power limit and NCCL,
+   and the kernels launched. Each path's kernels are then held against
+   their plain versions on that path's own operands, recorded as it runs
+   (`recorded`, `hold_recorded`): every search (A or B, and K) and gather
+   (C) of one render_spheres pass, of the Cornell row and of the harness's
+   render and train step, the first closest-hit and any-hit searches (D, E,
+   K) and gather of the mesh row's first pass, and every search, gather and
+   scatter-add (J, on the backward's own cotangents and index sets: the
+   albedo rows, the floor's attribute rows, the shared vertex rows) of each
+   fit's renders and first step on the stand-in. Last, the vertex fit on the
+   card against the CPU from one target: the first step's loss within 1e-4
+   of the CPU's and its gradient to the ground rows within 1e-2 of the
+   spread between two keys' gradients, the first 3 losses of both, and the
+   whole fit on the card from its start and from the ground one ulp higher.
 
 Then, on lines of their own: the kernels' JSON record, the nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA
@@ -890,21 +918,23 @@ def scatter_bound(cols, B, P):
                 bound_by="bytes")
 
 
-def compare_scatter(torch, idx, P, cols, label, gen, dead=0.0, rows_layout=False):
+def compare_scatter(torch, idx, P, cols, label, gen, dead=0.0, rows_layout=False,
+                    ct=None):
     """The scatter-add kernel on one input: `torch.equal` to
     `scatter_rows_ordered_reference` (its own sum order), it and its plain
     version (`index_add_`) each against a float64 sum on the card; two
-    launches must be bit-equal. Returns (max |kernel - plain|, ct, kernel
-    output)."""
+    launches must be bit-equal. The cotangents are `ct` (a path's own), else
+    drawn from `gen`. Returns (max |kernel - plain|, ct, kernel output)."""
     from mafrixraytracing_torch.ops import unpack as ou
 
     B = idx.shape[0]
-    ct = torch.randn((cols, B), generator=gen, device=idx.device)
-    if dead:
-        live = torch.rand(B, generator=gen, device=idx.device) >= dead
-        ct = ct * live
-    if rows_layout:     # the same values stored as (B, K) rows: a strided view
-        ct = ct.t().contiguous().t()
+    if ct is None:
+        ct = torch.randn((cols, B), generator=gen, device=idx.device)
+        if dead:
+            live = torch.rand(B, generator=gen, device=idx.device) >= dead
+            ct = ct * live
+        if rows_layout:     # the same values stored as (B, K) rows: a strided view
+            ct = ct.t().contiguous().t()
     out = ou.scatter_kernel(ct, idx, P)
     torch.cuda.synchronize()
     again = ou.scatter_kernel(ct, idx, P)
@@ -2612,6 +2642,375 @@ def phase_raster_preview(torch, dev, card):
     print(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
 
+SPHERES_SPP = 16            # render_spheres at its 400x200 and depth 8: 16 of its 64 passes
+MATRIX = 1024               # the mesh row of the baseline matrix at Renault's size,
+MATRIX_PASSES = 16          # in Renault's 16 passes, of 1 spp each here
+FIRST_STEPS = 3             # the vertex fit's first steps on the card and the CPU
+VERTEX_FIT = (48, 80)       # fit_inverse's vertex fit: its side and its steps
+# the wrappers that launch the searches' kernels, as `hold_recorded` names them
+WALKS = ("closest_kernel", "anyhit_kernel", "cull_kernel")
+SUPER_WALKS = ("closest_super_kernel", "anyhit_super_kernel", "cull_kernel")
+FITS = ("albedo error", "mean vertex error", "ground height error")
+
+
+def captured(fn, *args):
+    """(fn(*args), what it printed); the output is echoed, indented."""
+    import io
+    from contextlib import redirect_stdout
+
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        out = fn(*args)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print("    " + line)
+    return out, text
+
+
+@contextmanager
+def recorded(rec):
+    """Record the operands of every kernel call the block makes, for
+    `hold_recorded`: rec["walks"] (scene, `_prep`'s walk, t_min, any-hit or
+    not) of every search, rec["gathers"] (table, idx) of every attribute
+    gather and rec["scatters"] (ct, idx, rows) of every scatter-add. The
+    calls themselves run as they would."""
+    import torch
+
+    from mafrixraytracing_torch.ops import intersect as oi
+    from mafrixraytracing_torch.ops import unpack as ou
+
+    prep, gather, scatter = oi._prep, ou.gather_unpack, ou.scatter_rows
+    rec.update(walks=[], gathers=[], scatters=[])
+
+    def on_prep(scene, o, d, t_min, t_max, anyhit, fused=False):
+        out = prep(scene, o, d, t_min, t_max, anyhit, fused)
+        rec["walks"].append((scene, out[0], t_min, anyhit))
+        return out
+
+    def on_gather(table, idx):
+        rec["gathers"].append((table.contiguous(), idx.to(torch.int64).contiguous()))
+        return gather(table, idx)
+
+    def on_scatter(ct, idx, num_rows):
+        rec["scatters"].append((ct, idx.to(torch.int64).contiguous(), num_rows))
+        return scatter(ct, idx, num_rows)
+
+    with mock.patch.object(oi, "_prep", on_prep), \
+            mock.patch.object(ou, "gather_unpack", on_gather), \
+            mock.patch.object(ou, "scatter_rows", on_scatter):
+        yield rec
+
+
+def hold_recorded(torch, rec, label, first_of_each=False):
+    """Every kernel call `recorded` saw on a path, against its plain version
+    on the same operands: each search's walk (A, B, D or E) bit for bit
+    (`compare_closest`, `compare_anyhit`), its cull (K) `torch.equal` to
+    `cull_reference`, to the PyTorch cull's operands and to `_prep`'s
+    (`compare_cull`), each gather (C) `torch.equal` to `fetch_cols_reference`
+    and each scatter-add (J) on its own cotangents `torch.equal` to
+    `scatter_rows_ordered_reference` and within tolerance of a float64 sum
+    (`compare_scatter`). `first_of_each`: only the first closest-hit and the
+    first any-hit search and the first gather (the plain two-level walks take
+    seconds a call). Returns the number of calls held, by kernel."""
+    from mafrixraytracing_torch.ops import intersect as oi
+    from mafrixraytracing_torch.ops import unpack as ou
+
+    walks, gathers = rec["walks"], rec["gathers"]
+    if first_of_each:
+        walks = [next(w for w in walks if not w[3]), next(w for w in walks if w[3])]
+        gathers = gathers[:1]
+    held = {}
+    for i, (scene, walk, t_min, anyhit) in enumerate(walks):
+        what = f"{label}, search {i}"
+        kernel = pick(walk)[2 if anyhit else 0].__name__
+        if anyhit:
+            compare_anyhit(walk, t_min, what)
+        else:
+            compare_closest(walk, t_min, what)
+        held[kernel] = held.get(kernel, 0) + 1
+        if not oi._is_fused(walk) and cull_boxes(scene, walk)[0].shape[0] <= oi.CP:
+            compare_cull(scene, walk, t_min, what, timed=False)
+            held["cull_kernel"] = held.get("cull_kernel", 0) + 1
+    for i, (table, idx) in enumerate(gathers):
+        same = torch.equal(ou.unpack_kernel(table, idx), ou.fetch_cols_reference(table, idx))
+        print(f"  unpack {label}, gather {i}: B={idx.shape[0]} P={table.shape[0]} "
+              f"equal to plain={same}")
+        check(same, f"unpack kernel differs from its plain version on {label}")
+        held["unpack_kernel"] = held.get("unpack_kernel", 0) + 1
+    for i, (ct, idx, rows) in enumerate(rec["scatters"]):
+        compare_scatter(torch, idx, rows, ct.shape[0], f"{label}, scatter {i}", None, ct=ct)
+        held["scatter_kernel"] = held.get("scatter_kernel", 0) + 1
+    print(f"  {label}: held against the plain versions on the path's own operands: {held}")
+    return held
+
+
+def vertex_fit_card_against_cpu(torch, dev, obj, card):
+    """fit_inverse's vertex fit (its scene, start, target seed, key, lr and
+    spp) on the card against the same fit on the CPU, from one target (the
+    card's render, copied): the first step's loss and `mesh_vertices`
+    gradient, beside the card's gradient at the same state under the next
+    step's key (the Monte-Carlo spread); the first FIRST_STEPS losses of both;
+    then on the card the whole fit from the start and from the start with the
+    ground rows' y one ulp higher (how far rounding alone moves its end)."""
+    from mafrixraytracing_torch.core import rng
+    from mafrixraytracing_torch.examples import fit_inverse as F
+    from mafrixraytracing_torch.opt import inverse
+    from mafrixraytracing_torch.parallel.mesh import make_mesh
+    from mafrixraytracing_torch.parallel.render import render_image_sharded
+    from mafrixraytracing_torch.scene import assets
+    from mafrixraytracing_torch.scene.compiler import compile_scene
+
+    W = H = VERTEX_FIT[0]
+    t0 = time.perf_counter()
+    start = {}
+    for kind, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        cs = compile_scene(assets.mesh_scene(obj, W, H), device=d)
+        sel = torch.zeros(cs.scene.mesh_vertices.shape[0], dtype=torch.bool, device=d)
+        sel[torch.as_tensor(F.ground_rows(cs.scene), device=d)] = True
+        up = torch.tensor([0.0, 0.25, 0.0], device=d)
+        pert = cs.scene.mesh_vertices + torch.where(sel[:, None], up, torch.zeros_like(up))
+        start[kind] = (cs.scene, cs.camera, sel, pert)
+    scene, camera, sel, pert = start["card"]
+    target = render_image_sharded(scene, camera, make_mesh(1), W, H, 32,
+                                  rng.root_key(7, dev), F.CONFIG)
+
+    def first_step(kind, which=1):
+        """(loss, gradient) of the fit's step `which - 1` keys at the start."""
+        s, cam, _, p = start[kind]
+        key = rng.root_key(13, p.device)
+        for _ in range(which):
+            key, sub = rng.split(key)
+        loss, g = inverse.loss_and_grads(
+            {"mesh_vertices": p.clone().requires_grad_()},
+            inverse.apply_params(s, {"mesh_vertices": p}), cam, target.to(p.device), sub,
+            8, F.CONFIG)
+        return float(loss), g["mesh_vertices"].cpu()
+
+    def fit(kind, steps, p=None):
+        s, cam, _, p0 = start[kind]
+        p = p0 if p is None else p
+        fitted, losses = inverse.fit(
+            inverse.apply_params(s, {"mesh_vertices": p}), cam, target.to(p.device),
+            ("mesh_vertices",), steps=steps, lr=8e-3, spp=8,
+            key=rng.root_key(13, p.device), config=F.CONFIG)
+        true = s.mesh_vertices[:, 1]
+        err = float((fitted.mesh_vertices[:, 1] - true).abs()[start[kind][2]].mean())
+        return losses, err
+
+    l_d, g_d = first_step("card")
+    t1 = time.perf_counter()
+    l_c, g_c = first_step("cpu")
+    s_cpu = time.perf_counter() - t1
+    _, g_next = first_step("card", 2)
+    ground = sel.cpu()
+
+    def rel(a, b, rows):
+        return float(torch.linalg.norm(a[rows] - b[rows]) / torch.linalg.norm(b[rows]))
+
+    every = torch.ones_like(ground)
+    print(f"  vertex fit, card against CPU at the start (first step's key): loss "
+          f"{l_d:.7f} / {l_c:.7f} (relative difference {abs(l_d - l_c) / l_c:.3g}); "
+          f"|g_card - g_cpu| / |g_cpu| on the 4 ground rows {rel(g_d, g_c, ground):.3g}, "
+          f"on all {ground.numel()} rows {rel(g_d, g_c, every):.3g}; the card's gradient "
+          f"under the next step's key, against its own: {rel(g_next, g_d, ground):.3g} "
+          f"and {rel(g_next, g_d, every):.3g} (the CPU's step took {s_cpu:.1f} s)")
+    # Rounding alone at the first step: both see the same target, samples and
+    # search answers; they differ only in the order of sums and the last bit
+    # of elementwise functions, far below the spread of the gradient between
+    # two keys.
+    check(abs(l_d - l_c) <= 1e-4 * l_c, "the vertex fit's first loss differs between "
+          "the card and the CPU beyond rounding")
+    check(rel(g_d, g_c, ground) <= 1e-2 * rel(g_next, g_d, ground),
+          "the vertex fit's first gradient differs between the card and the CPU beyond "
+          "rounding")
+    t1 = time.perf_counter()
+    lc, _ = fit("cpu", FIRST_STEPS)
+    s_cpu = time.perf_counter() - t1
+    ld, _ = fit("card", FIRST_STEPS)
+    print(f"  vertex fit, first {FIRST_STEPS} losses: card {[f'{x:.6f}' for x in ld]}, "
+          f"CPU {[f'{x:.6f}' for x in lc]} (the CPU took {s_cpu:.1f} s)")
+    nudged = pert.clone()
+    nudged[sel, 1] = torch.nextafter(pert[sel, 1], torch.full_like(pert[sel, 1], float("inf")))
+    steps = VERTEX_FIT[1]
+    for name, p in (("the start", None), ("the start, ground y one ulp higher", nudged)):
+        losses, err = fit("card", steps, p)
+        print(f"  vertex fit on the card from {name}, {steps} steps: loss every 20 steps "
+              f"{[round(x, 4) for x in losses[::20] + losses[-1:]]}, ground height error "
+              f"{err:.4f} ({card})")
+    print(f"  the vertex fit, card against CPU: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_examples(torch, dev, card):
+    """The last four entry points on the card, as a user calls them, each
+    path's kernel launches read around it."""
+    import re
+    import shutil
+    import subprocess
+
+    from mafrixraytracing_torch import bench_scaling
+    from mafrixraytracing_torch.core import rng
+    from mafrixraytracing_torch.examples import baseline_matrix, fit_inverse, render_spheres
+    from mafrixraytracing_torch.integrator import path as P
+    from mafrixraytracing_torch.ops import cuda
+    from mafrixraytracing_torch.opt import inverse
+    from mafrixraytracing_torch.parallel.mesh import make_mesh
+    from mafrixraytracing_torch.parallel.render import render_image_sharded
+    from mafrixraytracing_torch.scene.builtin import cornell_box
+    from mafrixraytracing_torch.scene.compiler import compile_scene
+
+    t_phase = time.perf_counter()
+
+    def run(label, fn, *args):
+        cuda.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, text = captured(fn, *args)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        print(f"  {label}: {time.perf_counter() - t0:.2f} s, launches {counts} ({card})")
+        return out, text, counts
+
+    def launched(counts, kernels, label):
+        for k in kernels:
+            check(counts.get(k, 0) > 0, f"kernel {k} was not launched by {label}")
+
+    def held(label, fn, kernels, first_of_each=False):
+        """Record the kernel calls of fn() and hold each against its plain
+        version; `kernels` (wrapper names) must be among them."""
+        rec = {}
+        with recorded(rec):
+            captured(fn)
+        got = hold_recorded(torch, rec, label, first_of_each)
+        for k in kernels:
+            check(got.get(k, 0) > 0, f"no call of {k} was held on {label}")
+
+    tmp = tempfile.mkdtemp(prefix="mafrix_torch_examples_")
+    try:
+        out = os.path.join(tmp, "spheres.png")
+        rc, text, counts = run(f"render_spheres.main 400x200, depth 8, {SPHERES_SPP} spp",
+                               render_spheres.main, [out, "--spp", str(SPHERES_SPP)])
+        with open(out, "rb") as f:
+            check(rc == 0 and png_size(f.read()) == (400, 200),
+                  "render_spheres did not write its 400x200 PNG")
+        check(f"spp {SPHERES_SPP}/{SPHERES_SPP}" in text, "render_spheres did not finish")
+        launched(counts, FLAT + ("unpack", "cull"), "render_spheres")
+        shutil.copyfile(out, os.path.join(tempfile.gettempdir(), "mafrix_torch_spheres.png"))
+        scene, camera = render_spheres.build(400, 200, dev)
+        spheres_cfg = P.PathTracerConfig(max_depth=render_spheres.DEPTH)
+        with torch.no_grad():
+            held("render_spheres pass 0", lambda: P.render_sample_batch(
+                scene, camera, 400, 200, 0, rng.root_key(render_spheres.SEED, dev),
+                spheres_cfg), WALKS + ("unpack_kernel",))
+        del scene, camera
+
+        rc, text, counts = run("baseline_matrix.main --quick (Cornell 256x256, 16 spp)",
+                               baseline_matrix.main, ["--quick", "--out-dir", tmp])
+        with open(os.path.join(tmp, "RESULTS.json")) as f:
+            results = json.load(f)
+        check(rc == 0 and [r["scene"] for r in results] == ["cornell"],
+              "baseline_matrix --quick did not write its one record")
+        rec = results[0]
+        check(rec["finite"] and 0.02 < rec["mean_radiance"] < 0.5
+              and f"{rec['device']}, {rec['power_limit']}" == card,
+              f"the Cornell record is off: {rec}")
+        launched(counts, FLAT + ("unpack", "cull"), "the Cornell row")
+        w, h, spp, passes = baseline_matrix.CORNELL
+        cs = compile_scene(cornell_box(w, h))
+        held("the Cornell row", lambda: baseline_matrix.frame(cs, w, h, spp, 5, passes),
+             WALKS + ("unpack_kernel",))
+        cs = compile_scene(mesh_spec(MATRIX, MATRIX))
+        rec, text, counts = run(
+            f"baseline_matrix.run mesh36996 {MATRIX}x{MATRIX}, {MATRIX_PASSES} passes "
+            "of 1 spp", baseline_matrix.run, "mesh", cs, MATRIX, MATRIX, MATRIX_PASSES,
+            5, MATRIX_PASSES, tmp)
+        check(rec["finite"] and 0.02 < rec["mean_radiance"] < 0.5,
+              f"the mesh record is off: {rec}")
+        launched(counts, TWO_LEVEL + ("unpack", "cull"), "the mesh row")
+        check(not any(counts.get(k) for k in FLAT), "the mesh row ran the flat walks")
+        held("the mesh row's first pass", lambda: baseline_matrix.frame(
+            cs, MATRIX, MATRIX, 1, 5, 1), SUPER_WALKS + ("unpack_kernel",),
+            first_of_each=True)
+        del cs
+
+        rc, text, counts = run("fit_inverse.main (a seeded OBJ of 5,856 faces)",
+                               fit_inverse.main, [os.path.join(tmp, "fit")])
+        check(rc == 0 and "sphere5856" in text, "fit_inverse did not run on its stand-in")
+        losses = re.findall(r"  loss: ([\d.]+) -> ([\d.]+)", text)
+        errors = {m[0]: (float(m[1]), float(m[2])) for m in re.findall(
+            r"  (albedo error|mean vertex error|ground height error): ([\d.]+) -> "
+            r"([\d.]+)", text)}
+        setup = re.search(r"set-up of the three fits .*: ([\d.]+) \+ ([\d.]+) \+ "
+                          r"([\d.]+) = ([\d.]+) s", text)
+        check(len(losses) == 3 and all(float(b) < float(a) for a, b in losses),
+              f"a fit's last loss is not below its first: {losses}")
+        check(sorted(errors) == sorted(FITS)
+              and all(after < before for before, after in errors.values()),
+              f"a fit's parameter error did not shrink: {errors}")
+        check(setup is not None, "fit_inverse did not print the set-up of its three fits")
+        launched(counts, FLAT + ("unpack", "cull", "scatter"), "fit_inverse")
+        pngs = sorted(n for n in os.listdir(tmp) if n.startswith("fit_"))
+        check(len(pngs) == 9, f"fit_inverse wrote {pngs}")
+        # each fit's renders and first step on the stand-in, its kernels held
+        # on their own operands: the backward's scatter-adds into the albedo
+        # rows (material indices), the floor's attribute rows and the shared
+        # vertex rows (the faces' corners)
+        obj = fit_inverse.stand_in_obj(tmp)
+        fits = fit_inverse.Fits(None, make_mesh(1), obj, dev)
+        for name, fit in (("albedo", fit_inverse.fit_albedo),
+                          ("floor", fit_inverse.fit_geometry),
+                          ("vertex", fit_inverse.fit_vertices)):
+            held(f"the {name} fit's renders and first step", lambda: fit(fits, steps=1),
+                 WALKS + ("unpack_kernel", "scatter_kernel"))
+        vertex_fit_card_against_cpu(torch, dev, obj, card)
+
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "mafrixraytracing_torch.bench_scaling"],
+                              capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        for line in proc.stdout.splitlines():
+            print("    " + line)
+        print(f"  bench_scaling (its defaults, a world of {torch.cuda.device_count()} "
+              f"at most): {time.perf_counter() - t0:.2f} s with the processes' start "
+              f"({card})")
+        check(proc.returncode == 0, f"bench_scaling failed: {proc.stderr[-2000:]}")
+        recs = [json.loads(l) for l in proc.stdout.splitlines() if l.startswith("{")]
+        kinds = [r.get("metric") or ("note" if "note" in r else r.get("check")) for r in recs]
+        renders = [r for r in recs if r.get("metric") == "scaling_render_rays_per_s"]
+        (train,) = [r for r in recs if r.get("metric") == "train_step_seconds"]
+        check(renders and renders[0]["devices"] == 1, "no render line of the world of one")
+        for r in renders + [train]:
+            d = r["detail"]
+            check(f"{d['device']}, {d['power_limit']}" == card and d["backend"] == "nccl"
+                  and r["virtual_mesh"] is False, f"a scaling record is off: {r}")
+        launched(renders[0]["detail"]["launches"], FLAT + ("unpack", "cull"),
+                 "bench_scaling's renders")
+        launched(train["detail"]["launches"], ("scatter",), "bench_scaling's train step")
+        # a render and a train step of the harness's world of one, in this
+        # process, their kernels held on their own operands
+        W, H, S, D = (int(os.environ.get(k, v)) for k, v in bench_scaling.ENV.items())
+        cfg = P.PathTracerConfig(max_depth=D, rr_enable=False)
+        cs = compile_scene(cornell_box(W, H))
+        held("bench_scaling's render", lambda: render_image_sharded(
+            cs.scene, cs.camera, make_mesh(1), W, H, S, rng.root_key(1, dev), cfg),
+             WALKS + ("unpack_kernel",))
+        target = render_image_sharded(cs.scene, cs.camera, make_mesh(1), W, H, S,
+                                      rng.root_key(9, dev), cfg)
+        albedo = {"mat_albedo": cs.scene.mat_albedo.detach().clone().requires_grad_()}
+        held("bench_scaling's train step", lambda: inverse.loss_and_grads(
+            albedo, cs.scene, cs.camera, target, rng.root_key(2, dev), S, cfg),
+             WALKS + ("unpack_kernel", "scatter_kernel"))
+        if torch.cuda.device_count() == 1:
+            check(kinds[0] == "note" and "no scaling_efficiency" in recs[0]["note"]
+                  and "scaling_efficiency" not in kinds,
+                  "bench_scaling did not say why there is no efficiency line")
+        else:
+            check(kinds.count("scaling_efficiency") == len(renders) - 1,
+                  "bench_scaling printed no efficiency line")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2683,6 +3082,9 @@ def main() -> int:
 
     print("[12] the rasterizer, the transforms and the live preview")
     phase_raster_preview(torch, dev, info["nvidia_smi"])
+
+    print("[13] render_spheres, baseline_matrix, fit_inverse and the scaling harness")
+    phase_examples(torch, dev, info["nvidia_smi"])
 
     pallas = "mafrixraytracing_tpu/ops/intersect_pallas.py"
     fused_cu = "mafrixraytracing_torch/csrc/intersect_fused.cu"

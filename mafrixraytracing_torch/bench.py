@@ -65,6 +65,15 @@ def device_info() -> dict:
             "nvidia_smi": line}
 
 
+def device_fields(device) -> dict:
+    """The `device` and `power_limit` fields of a record: the card's as
+    nvidia-smi reports them, or "cpu" and "not measured" on the CPU."""
+    if torch.device(device).type != "cuda":
+        return {"device": "cpu", "power_limit": "not measured"}
+    info = device_info()
+    return {"device": info["name"], "power_limit": info["power_limit"]}
+
+
 def count_queries_per_sample(scene, camera, width, height, config,
                              profile=False):
     """Measured closest-hit + shadow queries of one 1-spp pass (and the
@@ -124,7 +133,6 @@ def _setup(width, height, depth, spec, scene_name):
     config, survival = calibrated_config(scene, camera, width, height, depth)
     queries_per_spp = count_queries_per_sample(scene, camera, width, height,
                                                config)
-    info = device_info()
     detail = {
         "package": "mafrixraytracing_torch",
         "scene": scene_name or "custom",
@@ -136,8 +144,7 @@ def _setup(width, height, depth, spec, scene_name):
         "queries_per_spp": queries_per_spp,
         "backend": "cuda",
         "fused_cull": bool(ops_isect.FUSED_CULL),
-        "device": info["name"],
-        "power_limit": info["power_limit"],
+        **device_fields(scene.tri_v0.device),
         "compact": list(config.compact),
         "survival": [round(s, 4) for s in survival],
     }

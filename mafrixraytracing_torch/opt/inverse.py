@@ -231,6 +231,7 @@ def fit(
     smooth_geometry: int = 0,
     overlap_microbatches: int = 1,
     mesh=None,
+    timings: dict | None = None,
 ):
     """Optimize `param_names` of `scene` so its render matches `target`, on
     the scene's device. Returns (fitted_scene, losses).
@@ -250,7 +251,10 @@ def fit(
       last checkpoint and reproduces the uninterrupted run bit-exactly
       (counter-based key schedule, deterministic gradient sums).
     - `callback(i, loss, params)` runs after every step.
+    - `timings`, a dict, receives the seconds of the set-up (`"setup_s"`: the
+      parameters, the optimizer's construction, the checkpoint's load).
     """
+    t_setup = time.perf_counter()
     if key is None:
         key = rng.root_key(0, scene.tri_v0.device)
     h, w = target.shape[:2]
@@ -269,6 +273,8 @@ def fit(
 
     losses = []
     t_prev = time.perf_counter()
+    if timings is not None:
+        timings["setup_s"] = t_prev - t_setup
     for i in range(start, steps):
         key, sub = rng.split(key)
         loss, gnorm = step_fn(params, scene, camera, target, sub)

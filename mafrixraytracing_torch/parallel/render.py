@@ -31,8 +31,21 @@ from mafrixraytracing_torch.parallel.mesh import RAY_AXIS, RayMesh
 # the JAX package's name for it
 _render_flat_pixels = render_flat_pixels
 
-__all__ = ["RAY_AXIS", "padded_pixel_ids", "render_shard", "assemble_image",
-           "render_image_sharded", "render_spp_sharded", "_render_flat_pixels"]
+__all__ = ["RAY_AXIS", "padded_pixel_ids", "same_image_any_world", "render_shard",
+           "assemble_image", "render_image_sharded", "render_spp_sharded",
+           "_render_flat_pixels"]
+
+
+def same_image_any_world(width: int, height: int, spp: int, world: int,
+                         config: PathTracerConfig = PathTracerConfig()) -> bool:
+    """Whether `render_image_sharded` gives a world of `world` ranks the
+    image of one bit for bit (the module docstring): no compaction schedule,
+    and every shard groups a pixel's samples as the whole image does."""
+    B = width * height
+    per = -(-B // world)
+    return config.compact == () and (
+        spp <= 2 or P._spp_group(spp, per, config.wavefront)
+        == P._spp_group(spp, B, config.wavefront))
 
 
 def padded_pixel_ids(width: int, height: int, world: int, device=None) -> torch.Tensor:

@@ -61,18 +61,21 @@ T_MIN = P.RAY_EPS
 SPHERE_QUADS = 88       # 88 x 88 quads = 15,488 faces: 122 clusters with the ground
 
 
-def write_sphere_obj(path: str, quads: int = SPHERE_QUADS, seed: int = 2025) -> None:
-    """A seeded displaced UV sphere of 2 quads^2 faces as an OBJ file."""
+def write_sphere_obj(path: str, quads: int = SPHERE_QUADS, seed: int = 2025,
+                     cols: int | None = None) -> None:
+    """A seeded displaced UV sphere of 2 quads x cols faces (cols: quads by
+    default) as an OBJ file."""
+    cols = quads if cols is None else cols
     rs = np.random.default_rng(seed)
     th = np.linspace(0.02, np.pi - 0.02, quads + 1)[:, None]
-    ph = np.linspace(0.0, 2.0 * np.pi, quads, endpoint=False)[None, :]
-    r = 1.0 + 0.04 * rs.normal(size=(quads + 1, quads))
+    ph = np.linspace(0.0, 2.0 * np.pi, cols, endpoint=False)[None, :]
+    r = 1.0 + 0.04 * rs.normal(size=(quads + 1, cols))
     v = np.stack([r * np.sin(th) * np.cos(ph), r * np.cos(th),
                   r * np.sin(th) * np.sin(ph)], axis=-1).reshape(-1, 3)
-    i, j = np.meshgrid(np.arange(quads), np.arange(quads), indexing="ij")
-    a = (i * quads + j).ravel()
-    b = (i * quads + (j + 1) % quads).ravel()
-    c, d = a + quads, b + quads
+    i, j = np.meshgrid(np.arange(quads), np.arange(cols), indexing="ij")
+    a = (i * cols + j).ravel()
+    b = (i * cols + (j + 1) % cols).ravel()
+    c, d = a + cols, b + cols
     faces = np.concatenate([np.stack([a, c, b], 1), np.stack([b, c, d], 1)]) + 1
     with open(path, "w") as f:
         f.write("# seeded displaced sphere, %d faces\ng mesh\n" % faces.shape[0])

@@ -2,7 +2,9 @@
 chunks against the unchunked frame, on the CPU.
 
 The counterparts of `tests/test_gradients.py` (albedo, light radiance,
-emission, a vertex: the same scenes, steps and tolerances) and of
+emission, a vertex, the camera's origin: the same scenes, steps and
+tolerances), of `tests/test_compact.py`'s gradient through compaction, of
+`tests/test_smoke_tiers.py`'s FD gradient, and of
 `tests/test_film.py::test_render_image_pixel_chunking_exact`, for
 `mafrixraytracing_torch`. Both the gradient and the finite difference use
 the same keys, so the same sample paths (common random numbers), with
@@ -109,6 +111,48 @@ def test_vertex_gradient_fd():
     assert row >= 0
     _fd_check(lambda v0: _mean_radiance(scene.replace(tri_v0=v0), n=256, origin=origin),
               scene.tri_v0, eps=1e-3, rtol=0.05, directions=[(row, 1)])
+
+
+def test_camera_gradient_fd():
+    """`tests/test_gradients.py::test_camera_gradient_exists`: d(mean
+    radiance)/d(origin y) of an oblique ray (straight down, moving the origin
+    would not move the shading point), against the central difference."""
+    scene = _simple_scene()
+    d0 = torch.tensor([1.0, -1.0, 0.0]) / torch.sqrt(torch.tensor(2.0))
+
+    def f(cam_y):
+        o = torch.zeros(128, 3) + torch.stack([torch.zeros(()), cam_y, torch.zeros(())])
+        keys = rng.pixel_keys(rng.root_key(2, "cpu"), 128)
+        return trace_radiance(scene, V3.of(o), V3.of(d0.expand(128, 3)), keys,
+                              CFG).mean()
+
+    y = torch.tensor(1.0, requires_grad=True)
+    (g,) = torch.autograd.grad(f(y), y)
+    assert torch.isfinite(g) and abs(float(g)) > 1e-4
+    with torch.no_grad():
+        fd = (float(f(torch.tensor(1.0 + 1e-3))) - float(f(torch.tensor(1.0 - 1e-3)))) / 2e-3
+    np.testing.assert_allclose(float(g), fd, rtol=0.05, atol=1e-5)
+
+
+def test_compaction_gradient_fd():
+    """`tests/test_compact.py::test_compaction_gradient_matches_fd`: the
+    light-radiance gradient through the compacted bounce loop (the pack's
+    sort, slices and fragment merge) against the central difference."""
+    scene = _simple_scene()
+    cfg = PathTracerConfig(max_depth=3, rr_enable=False, compact=(1.0, 1.0, 0.5))
+    o, d = _rays(128, (0.0, 1.0, 0.0), (0.0, -1.0, 0.0))
+    keys = rng.pixel_keys(rng.root_key(1, "cpu"), 128)
+    _fd_check(lambda lr: trace_radiance(scene.replace(light_radiance=lr), o, d, keys,
+                                        cfg).mean(),
+              scene.light_radiance, eps=1e-2, rtol=1e-3, directions=[(0, 0)])
+
+
+def test_smoke_fd_gradient():
+    """`tests/test_smoke_tiers.py::test_smoke_fd_gradient`: the light-radiance
+    gradient of 64 rays at the seed 5 against the central difference."""
+    scene = _simple_scene()
+    _fd_check(lambda lr: _mean_radiance(scene.replace(light_radiance=lr), n=64, seed=5),
+              scene.light_radiance, eps=1e-2, rtol=1e-3, directions=[(0, 0)])
 
 
 @pytest.mark.parametrize("wavefront", [512, 1024])
