@@ -173,6 +173,21 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    of the CPU's and its gradient to the ground rows within 1e-2 of the
    spread between two keys' gradients, the first 3 losses of both, and the
    whole fit on the card from its start and from the ground one ulp higher.
+14. Memory-bounded gradients (`PathTracerConfig.remat`) on the mesh of
+   phase 2 at 256x256: first a 64x64 x 1 spp fwd+bwd without and twice
+   with it (the process's first checkpointed call), then 64 spp fwd+bwd
+   with the benchmark's compaction, remat off and on in turns (off, on, on,
+   off): s/iter, peak memory and launches by kernel of each; image and the
+   three gradients `torch.equal` in all four runs; closest_super,
+   anyhit_super, cull and scatter launched as often in each, unpack more
+   often with remat (the recompute fetches again). One more run with remat
+   records its kernel calls: J held against its ordered plain version on
+   every cotangent of the checkpointed backward, the first closest-hit and
+   any-hit searches (which must hit and occlude some rays), their culls and
+   the first gather against theirs. Then 128 spp off and on, and 512 spp with
+   `remat` unset: `ops.remat.needed` must choose no checkpoint at 64 spp and
+   checkpoints at 512, and the 512-spp peak must be below the 64-spp peak
+   without remat; the growth of the peak with spp off and on.
 
 Then, on lines of their own: the kernels' JSON record, the nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA
@@ -2701,7 +2716,7 @@ def recorded(rec):
         yield rec
 
 
-def hold_recorded(torch, rec, label, first_of_each=False):
+def hold_recorded(torch, rec, label, first_of_each=False, require_hits=False):
     """Every kernel call `recorded` saw on a path, against its plain version
     on the same operands: each search's walk (A, B, D or E) bit for bit
     (`compare_closest`, `compare_anyhit`), its cull (K) `torch.equal` to
@@ -2711,7 +2726,9 @@ def hold_recorded(torch, rec, label, first_of_each=False):
     `scatter_rows_ordered_reference` and within tolerance of a float64 sum
     (`compare_scatter`). `first_of_each`: only the first closest-hit and the
     first any-hit search and the first gather (the plain two-level walks take
-    seconds a call). Returns the number of calls held, by kernel."""
+    seconds a call). `require_hits`: every closest-hit search held must hit a
+    ray and every any-hit search occlude one. Returns the number of calls
+    held, by kernel."""
     from mafrixraytracing_torch.ops import intersect as oi
     from mafrixraytracing_torch.ops import unpack as ou
 
@@ -2724,9 +2741,10 @@ def hold_recorded(torch, rec, label, first_of_each=False):
         what = f"{label}, search {i}"
         kernel = pick(walk)[2 if anyhit else 0].__name__
         if anyhit:
-            compare_anyhit(walk, t_min, what)
+            found = int(compare_anyhit(walk, t_min, what)[1].sum())
         else:
-            compare_closest(walk, t_min, what)
+            found = int((compare_closest(walk, t_min, what)[2] >= 0).sum())
+        check(found > 0 or not require_hits, f"{what}: no ray hit or occluded")
         held[kernel] = held.get(kernel, 0) + 1
         if not oi._is_fused(walk) and cull_boxes(scene, walk)[0].shape[0] <= oi.CP:
             compare_cull(scene, walk, t_min, what, timed=False)
@@ -3011,6 +3029,148 @@ def phase_examples(torch, dev, card):
     print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
 
 
+REMAT_SPP = (128, 512)       # the remat runs beyond the 64-spp cell
+
+
+def run_fwd_bwd(torch, cs, spp, config):
+    """`bench.fwd_bwd` on `cs` at WIDTH x HEIGHT: (image, gradients, s, peak
+    GiB, peak GiB above what was allocated before, launches by kernel)."""
+    from mafrixraytracing_torch import bench
+    from mafrixraytracing_torch.ops import cuda
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    img, grads = bench.fwd_bwd(cs.scene, cs.camera, WIDTH, HEIGHT, spp, 0, config)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    return img, grads, seconds, peak / 2**30, (peak - base) / 2**30, launches
+
+
+def used(launches):
+    """The kernels a run launched, with their counts."""
+    return {k: v for k, v in launches.items() if v}
+
+
+def phase_remat(torch):
+    """Memory-bounded gradients (`PathTracerConfig.remat`) on the mesh of
+    phase 2: bit-equal to the plain graph, the searches never run again, and
+    the memory saved at 512 spp, where `remat` unset chooses checkpoints."""
+    import dataclasses
+
+    from mafrixraytracing_torch import bench
+    from mafrixraytracing_torch.ops import remat
+    from mafrixraytracing_torch.scene.compiler import compile_scene
+
+    t_phase = time.perf_counter()
+    W, H = WIDTH, HEIGHT
+    cs = compile_scene(mesh_spec(W, H))
+    config, _ = bench.calibrated_config(cs.scene, cs.camera, W, H, DEPTH)
+    modes = {"off": dataclasses.replace(config, remat=False),
+             "on": dataclasses.replace(config, remat=True),
+             "unset": config}
+    check(config.remat is None, "the benchmark's config sets remat")
+    dev = cs.scene.tri_v0.device
+    with torch.enable_grad():
+        choice = {spp: remat.needed(config, spp, W * H, dev) for spp in (SPP, *REMAT_SPP)}
+    free = torch.cuda.mem_get_info(dev)[0] / 2**30
+    print(f"  remat unset: checkpoints chosen {choice} ({free:.2f} GiB free)")
+    check(not choice[SPP] and choice[REMAT_SPP[-1]],
+          f"remat unset should checkpoint at {REMAT_SPP[-1]} spp and not at {SPP}")
+    small = compile_scene(mesh_spec(SMALL, SMALL))
+    for name in ("off", "on", "on"):
+        t0 = time.perf_counter()
+        bench.fwd_bwd(small.scene, small.camera, SMALL, SMALL, 1, 0,
+                      dataclasses.replace(modes[name], compact=()))
+        torch.cuda.synchronize()
+        print(f"  remat {name}, {SMALL}x{SMALL} x 1 spp fwd+bwd (the process's first "
+              f"checkpointed call is the second): {time.perf_counter() - t0:.3f} s")
+    runs = {}
+    print(f"  remat, mesh {W}x{H} x {SPP} spp fwd+bwd, compact "
+          f"{[round(c, 4) for c in config.compact]}, in turns")
+    for name in ("off", "on", "on", "off"):
+        img, grads, sec, peak, above, launches = run_fwd_bwd(torch, cs, SPP, modes[name])
+        print(f"  remat {name}: {sec:.3f} s/iter, peak {peak:.3f} GiB ({above:.3f} above "
+              f"the scene), launches {used(launches)}")
+        runs.setdefault(name, []).append((img, grads, peak, launches))
+    img0, grads0, _, l0 = runs["off"][0]
+    for name, rs in runs.items():
+        for img, grads, _, launches in rs:
+            check(torch.equal(img, img0), f"remat {name}: the image differs from remat off")
+            for n, g, g0 in zip(("mat_albedo", "light_radiance", "tri_v0"), grads, grads0):
+                check(torch.equal(g, g0), f"remat {name}: the gradient of {n} differs")
+            for k in ("closest_super", "anyhit_super", "cull", "scatter"):
+                check(launches[k] == l0[k] > 0,
+                      f"remat {name}: {k} launched {launches[k]} times, {l0[k]} without")
+    on_unpack = runs["on"][0][3]["unpack"]
+    print(f"  image and gradients torch.equal in all four runs; the walks, K and J launched "
+          f"as often with remat as without; unpack {l0['unpack']} without remat, "
+          f"{on_unpack} with it (the recompute fetches again)")
+    check(on_unpack > l0["unpack"], "the recompute did not fetch again")
+
+    # J on the checkpointed backward's own cotangents, and the first searches
+    rec = {}
+    with recorded(rec):
+        bench.fwd_bwd(cs.scene, cs.camera, W, H, SPP, 0, modes["on"])
+    held = hold_recorded(torch, rec, "remat mesh fwd+bwd", first_of_each=True,
+                         require_hits=True)
+    check(held.get("scatter_kernel", 0) == l0["scatter"],
+          "not every scatter-add of the checkpointed backward was held")
+    del rec
+
+    peaks = {(SPP, name): runs[name][0][2] for name in ("off", "on")}
+    for spp in REMAT_SPP:
+        for name in (("off", "on") if spp < REMAT_SPP[-1] else ("unset",)):
+            img, grads, sec, peak, above, launches = run_fwd_bwd(torch, cs, spp, modes[name])
+            mean = float(img.mean())
+            print(f"  remat {name} at {spp} spp: {sec:.3f} s/iter, peak {peak:.3f} GiB "
+                  f"({above:.3f} above the scene), mean {mean:.5f}, launches {used(launches)}")
+            check(bool(torch.isfinite(img).all()) and 0.02 < mean < 0.5,
+                  f"the {spp}-spp image is not sane")
+            check(all(bool(torch.isfinite(g).all()) for g in grads),
+                  f"a {spp}-spp gradient is not finite")
+            peaks[spp, name] = peak
+    last = peaks[REMAT_SPP[-1], "unset"]
+    check(last < peaks[SPP, "off"],
+          f"{REMAT_SPP[-1]} spp with remat unset peaks at {last:.3f} GiB, not below "
+          f"{SPP} spp without remat ({peaks[SPP, 'off']:.3f})")
+    for name in ("off", "on"):
+        lo, hi = peaks[SPP, name], peaks[REMAT_SPP[0], name]
+        print(f"  peak memory's growth with spp, remat {name}: "
+              f"{(hi - lo) / (REMAT_SPP[0] - SPP):.5f} GiB a spp ({lo:.3f} GiB at {SPP}, "
+              f"{hi:.3f} at {REMAT_SPP[0]})")
+    print(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def fwd_bwd_in_turns(parent: str) -> int:
+    """`python -m mafrixraytracing_torch.bench` on the mesh of phase 2
+    (BENCH_OBJ, 256x256 x 64 spp fwd+bwd, the benchmark's compaction) from
+    the checkout `parent` and from this one, in turns (parent, this, this,
+    parent), one process each: the seconds of an iteration and rays/s of
+    each. Returns non-zero if a run failed."""
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, BENCH_OBJ=mesh_obj(), BENCH_ITERS="3")
+    for label, cwd in (("parent", parent), ("change", here), ("change", here),
+                       ("parent", parent)):
+        out = subprocess.run([sys.executable, "-m", "mafrixraytracing_torch.bench"],
+                             cwd=cwd, env=env, capture_output=True, text=True,
+                             timeout=900)
+        if out.returncode:
+            print(out.stdout[-2000:], out.stderr[-4000:], sep="\n")
+            return out.returncode
+        rec = json.loads(out.stdout.strip().splitlines()[-1])
+        print(f"  {label}: {rec['detail']['seconds_per_iter']:.4f} s/iter, "
+              f"{rec['value']:.1f} rays/s, {rec['detail']['device']}, "
+              f"{rec['detail']['power_limit']}")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3027,6 +3187,8 @@ def main() -> int:
         cuda.lib()
         time_walks(torch, dev, *sys.argv[2:4])
         return 0
+    if sys.argv[1:2] == ["--turns"]:
+        return fwd_bwd_in_turns(sys.argv[2])
 
     print("[1] device and build")
     info = bench.device_info()
@@ -3085,6 +3247,9 @@ def main() -> int:
 
     print("[13] render_spheres, baseline_matrix, fit_inverse and the scaling harness")
     phase_examples(torch, dev, info["nvidia_smi"])
+
+    print("[14] memory-bounded gradients (remat) on the mesh")
+    phase_remat(torch)
 
     pallas = "mafrixraytracing_tpu/ops/intersect_pallas.py"
     fused_cu = "mafrixraytracing_torch/csrc/intersect_fused.cu"

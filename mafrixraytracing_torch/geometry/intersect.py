@@ -27,6 +27,7 @@ from mafrixraytracing_torch.core.math import safe_sqrt
 from mafrixraytracing_torch.core.types import HitS, ShadingS
 from mafrixraytracing_torch.core.v3 import V3
 from mafrixraytracing_torch.materials.texture import sample_atlas
+from mafrixraytracing_torch.ops import remat
 from mafrixraytracing_torch.ops.unpack import gather_rows
 
 BIG = 1e30
@@ -261,8 +262,17 @@ def hit_attributes_soa(scene, o: V3, d: V3, prim_idx: torch.Tensor,
     albedo = vec(24)
     if scene.has_textures:
         # nearest, as the JAX package's hit_attributes_soa: one gather
-        tex_rgb = sample_atlas(scene.tex_atlas, col(33).to(torch.int64),
-                               torch.stack([uu, vv], dim=-1), mode="nearest")
+        page, uv = col(33).to(torch.int64), torch.stack([uu, vv], dim=-1)
+        if scene.tex_atlas.requires_grad:
+            tex_rgb = sample_atlas(scene.tex_atlas, page, uv, mode="nearest")
+        else:
+            # nearest sampling passes no gradient to uv: computed without a
+            # graph, the lookup is one that a checkpointed step can keep
+            # (the JAX package's tex_r, tex_g, tex_b)
+            def lookup():
+                with torch.no_grad():
+                    return sample_atlas(scene.tex_atlas, page, uv, mode="nearest")
+            tex_rgb = remat.keep("texture", lookup)
         albedo = albedo * V3.of(tex_rgb)
     sh = ShadingS(albedo=albedo, emission=vec(27), fuzz=col(30), ior=col(31),
                   mtype=col(32).to(torch.int64), two_sided=col(34) > 0.5,

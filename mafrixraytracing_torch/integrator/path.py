@@ -6,7 +6,9 @@ masked, and between bounces the wavefront can be compacted: live lanes are
 packed to the front with one stable sort and the wavefront is cut to a
 per-bounce bucket (`compact` schedule). If more rays survive than a bucket
 holds, a uniform-random subset is kept and reweighted by live / bucket
-(population-control Russian roulette, unbiased).
+(population-control Russian roulette, unbiased). With `remat`,
+`render_image` checkpoints each step (`ops.remat`): the backward holds the
+searches' results, not the activations.
 
 Two estimators (`PathTracerConfig.estimator`):
 - "physical" (default): cosine-sampled BSDFs, NEE with power-2 MIS against
@@ -42,7 +44,7 @@ from mafrixraytracing_torch.materials.bsdf import (
     emitted_soa,
     sample_bsdf_soa,
 )
-from mafrixraytracing_torch.ops import dispatch
+from mafrixraytracing_torch.ops import dispatch, remat
 from mafrixraytracing_torch.ops.intersect import TILE
 
 RAY_EPS = 1e-3
@@ -67,6 +69,12 @@ class PathTracerConfig:
                                 # () = no compaction
     motion_blur: bool = False   # sample a shutter time per camera ray and
                                 # intersect moving spheres at that time
+    remat: bool | None = None   # checkpoint each (pixel-chunk, spp-group)
+                                # step of render_image: the backward holds
+                                # the searches' results, not the activations,
+                                # and runs no walk or cull again. None: where
+                                # the graph would not fit (`ops.remat.needed`).
+                                # The same result either way (JAX: True)
 
 
 class PathState(NamedTuple):
@@ -511,10 +519,7 @@ def render_image(scene, camera, width: int, height: int, spp: int,
     pxg, pyg = px.repeat_interleave(G), py.repeat_interleave(G)
     packed = packed_attr_table(scene)
 
-    acc = [torch.zeros((Bc, 3), dtype=torch.float32, device=dev)
-           for _ in range(n_chunks)]
-    for step in range((spp // G) * n_chunks):
-        g, ci = divmod(step, n_chunks)
+    def group(g: int, ci: int) -> torch.Tensor:
         off = ci * Bc
         keys_c = base_keys[off:off + Bc]
         sidx = g * G + torch.arange(G, device=dev)
@@ -526,7 +531,17 @@ def render_image(scene, camera, width: int, height: int, spp: int,
         o, d = camera.get_rays(u, v, lens_uv=lens_uv)
         times = rng.uniforms(skeys, 1002) if config.motion_blur else None
         rad = trace_radiance(scene, o, d, skeys, config, packed, times=times)
-        acc[ci] = acc[ci] + rad.reshape(Bc, G, 3).sum(dim=1)
+        return rad.reshape(Bc, G, 3).sum(dim=1)
+
+    if remat.needed(config, spp, B, dev):
+        # each step under a checkpoint: the backward keeps the searches'
+        # results, not the step's activations
+        group = remat.checkpointed(group)
+    acc = [torch.zeros((Bc, 3), dtype=torch.float32, device=dev)
+           for _ in range(n_chunks)]
+    for step in range((spp // G) * n_chunks):
+        g, ci = divmod(step, n_chunks)
+        acc[ci] = acc[ci] + group(g, ci)
     img = torch.cat(acc)[:B].index_select(0, torch.as_tensor(inv, device=dev)) / spp
     return img.reshape(height, width, 3)
 

@@ -1,0 +1,225 @@
+"""`PathTracerConfig.remat`: memory-bounded gradients, on the CPU.
+
+The port against itself, on Cornell 16x16 at 4 spp with a wavefront of 256
+rays (four checkpointed groups), depth 3 and 5, with the compaction that
+`bench.calibrated_config` sizes: the image and the gradients to
+`mat_albedo`, `light_radiance` and `tri_v0` are `torch.equal` with `remat`
+on and off. The searches (`ops.intersect._prep`) run as often in a fwd+bwd
+with `remat` as without; the attribute fetch (`ops.unpack.gather_unpack`,
+kernel C on the card) once more a fetch, in the backward. With `remat`
+unset, `render_image` follows `ops.remat.needed`, whose choice is held on
+both sides of its threshold with the card's free memory patched.
+
+The port against JAX: `remat=True` against JAX's default (`remat=True`),
+depth 5 without compaction, at the tolerances of `tests/test_torch_path.py`:
+the image within rtol 1e-3 / atol 1e-4 on at least 99.5% of the pixels and
+its mean within 1e-4 relative; the gradients within rtol 1e-3 / atol 1e-5 of
+`jax.grad`.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mafrixraytracing_torch import bench
+from mafrixraytracing_torch.core import rng as trng
+from mafrixraytracing_torch.integrator import path as TP
+from mafrixraytracing_torch.ops import intersect as oi
+from mafrixraytracing_torch.ops import remat
+from mafrixraytracing_torch.ops import unpack as ou
+from mafrixraytracing_tpu.integrator import path as JP
+from mafrixraytracing_tpu.scene import builtin as jbuiltin
+from mafrixraytracing_tpu.scene.compiler import compile_scene as jcompile
+from torch_port_helpers import carry_camera, carry_scene
+
+W = H = 16
+SPP = 4
+WAVEFRONT = 256
+LEAVES = ("mat_albedo", "light_radiance", "tri_v0")
+
+
+@pytest.fixture(scope="module")
+def cornell():
+    jcs = jcompile(jbuiltin.cornell_box(W, H))
+    return jcs, carry_scene(jcs.scene), carry_camera(jcs.camera)
+
+
+@pytest.fixture(scope="module")
+def configs(cornell):
+    """The benchmark's compaction at depth 3 and 5, on a wavefront of 256."""
+    _, ts, tcam = cornell
+    return {depth: dataclasses.replace(
+        bench.calibrated_config(ts, tcam, W, H, depth)[0], wavefront=WAVEFRONT)
+        for depth in (3, 5)}
+
+
+def fwd_bwd(ts, tcam, config, counts=None):
+    """(image, the three gradients, the counts after the forward) of the
+    mean image at seed 3."""
+    leaves = [getattr(ts, n).clone().requires_grad_() for n in LEAVES]
+    s = ts.replace(**dict(zip(LEAVES, leaves)))
+    img = TP.render_image(s, tcam, W, H, SPP, trng.root_key(3, "cpu"), config)
+    forward = None if counts is None else dict(counts)
+    img.mean().backward()
+    return img.detach(), [x.grad for x in leaves], forward
+
+
+def count_calls(mp, counts):
+    """Count `_prep` (one a search) and the attribute fetch into `counts`."""
+    prep, fetch = oi._prep, ou.gather_unpack
+
+    def on_prep(*a, **k):
+        counts["prep"] += 1
+        return prep(*a, **k)
+
+    def on_fetch(*a, **k):
+        counts["fetch"] += 1
+        return fetch(*a, **k)
+
+    mp.setattr(oi, "_prep", on_prep)
+    mp.setattr(ou, "gather_unpack", on_fetch)
+
+
+@pytest.fixture
+def counted(monkeypatch):
+    counts = {"prep": 0, "fetch": 0}
+    count_calls(monkeypatch, counts)
+    return counts
+
+
+@pytest.fixture(scope="module")
+def plain_runs(cornell, configs):
+    """remat off, per depth: (image, gradients, counts of the fwd+bwd)."""
+    _, ts, tcam = cornell
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        for depth, cfg in configs.items():
+            counts = {"prep": 0, "fetch": 0}
+            count_calls(mp, counts)
+            img, grads, _ = fwd_bwd(ts, tcam, cfg)
+            mp.undo()
+            out[depth] = (img, grads, counts)
+    return out
+
+
+@pytest.mark.parametrize("depth", [3, 5])
+def test_remat_is_bit_equal_and_runs_no_search_again(cornell, configs, plain_runs,
+                                                     counted, depth):
+    _, ts, tcam = cornell
+    cfg = configs[depth]
+    assert cfg.compact and cfg.remat is None
+    img0, grads0, counts0 = plain_runs[depth]
+    img, grads, forward = fwd_bwd(ts, tcam, dataclasses.replace(cfg, remat=True),
+                                  counted)
+    assert torch.equal(img, img0)
+    for n, g, g0 in zip(LEAVES, grads, grads0):
+        assert g0.abs().max() > 0, n
+        assert torch.equal(g, g0), n
+    # the forward makes one search a query; the backward none, and fetches
+    # the attributes again
+    assert forward["prep"] == counted["prep"] == counts0["prep"] > 0
+    assert forward["fetch"] == counts0["fetch"] > 0
+    assert counted["fetch"] == 2 * counts0["fetch"]
+
+
+def test_render_follows_the_size_decision(cornell, configs, plain_runs, counted,
+                                          monkeypatch):
+    """With `remat` unset, `render_image` asks `remat.needed` with the
+    frame's spp and pixels and checkpoints when it says so; the result does
+    not change."""
+    _, ts, tcam = cornell
+    asked = []
+
+    def decide(config, spp, pixels, device):
+        asked.append((config.remat, spp, pixels, device.type))
+        return True
+
+    monkeypatch.setattr(remat, "needed", decide)
+    img, grads, _ = fwd_bwd(ts, tcam, configs[3], counted)
+    img0, grads0, counts0 = plain_runs[3]
+    assert asked == [(None, SPP, W * H, "cpu")]
+    assert counted["fetch"] == 2 * counts0["fetch"]
+    assert counted["prep"] == counts0["prep"]
+    assert torch.equal(img, img0)
+    assert all(torch.equal(g, g0) for g, g0 in zip(grads, grads0))
+
+
+GIB = 2 ** 30
+
+
+@pytest.mark.parametrize("remat_field,device,grad,free_gib,spp,want", [
+    (True, "cpu", True, None, 1, True),
+    (False, "cuda", True, 1.0, 4096, False),
+    (True, "cuda", False, None, 1, False),      # no graph to bound
+    (None, "cpu", True, None, 4096, False),     # the CPU never decides
+    (None, "cuda", True, 79.0, 64, False),      # the 64-spp cell: 6.53 GB
+    (None, "cuda", True, 79.0, 512, True),      # 52.27 GB against 42.41
+    (None, "cuda", True, 13.0, 64, False),      # 6.53 GB against 6.98 (GB)
+    (None, "cuda", True, 12.0, 64, True),       # 6.53 GB against 6.44
+])
+def test_needed_decides_by_the_graph_and_free_memory(
+        monkeypatch, remat_field, device, grad, free_gib, spp, want):
+    """256x256 with the mesh cell's compaction (2.2255 lane-bounces a pixel):
+    the estimated graph against half the card's free memory."""
+    def mem_get_info(dev):
+        assert free_gib is not None
+        return int(free_gib * GIB), 80 * GIB
+
+    monkeypatch.setattr(torch.cuda, "mem_get_info", mem_get_info)
+    cfg = TP.PathTracerConfig(compact=(1.0, 0.7054, 0.2773, 0.2009, 0.0419),
+                              remat=remat_field)
+    with torch.set_grad_enabled(grad):
+        assert remat.needed(cfg, spp, 256 * 256, torch.device(device)) is want
+
+
+def test_remat_without_grad_records_nothing(cornell, configs, monkeypatch):
+    """Under no_grad there is no graph to bound: the steps run plainly."""
+    _, ts, tcam = cornell
+    monkeypatch.setattr(remat, "checkpointed", None)
+    with torch.no_grad():
+        img = TP.render_image(ts, tcam, W, H, SPP, trng.root_key(3, "cpu"),
+                              dataclasses.replace(configs[3], remat=True))
+    assert not img.requires_grad and bool(torch.isfinite(img).all())
+
+
+def test_replay_refuses_a_different_order():
+    tape = remat.Tape()
+    tape.values.append(("closest", torch.zeros(1)))
+    tape.recorded = True
+    with remat._using(tape):
+        with pytest.raises(RuntimeError, match="'anyhit' where the forward"):
+            remat.keep("anyhit", lambda: torch.ones(1))
+        tape.pos = 1
+        with pytest.raises(RuntimeError, match="more kept values"):
+            remat.keep("closest", lambda: torch.ones(1))
+
+
+def test_remat_matches_jax(cornell):
+    """The port with remat against JAX's default (remat with its policy) on
+    the same scene, camera and key, depth 5 without compaction (JAX unrolls
+    the compaction loop, which doubles its compile)."""
+    jcs, ts, tcam = cornell
+    cfg = TP.PathTracerConfig(max_depth=5, wavefront=WAVEFRONT, remat=True)
+    jcfg = JP.PathTracerConfig(max_depth=5, wavefront=WAVEFRONT)
+    assert jcfg.remat
+    js = jcs.scene
+
+    def loss(a, r, v):
+        s = js.replace(mat_albedo=a, light_radiance=r, tri_v0=v)
+        img = JP.render_image(s, jcs.camera, W, H, SPP, jax.random.key(3), jcfg)
+        return jnp.mean(img), img
+
+    (_, jimg), jg = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+        js.mat_albedo, js.light_radiance, js.tri_v0)
+    timg, tg, _ = fwd_bwd(ts, tcam, cfg)
+    timg, jimg = timg.numpy(), np.asarray(jimg)
+    close = np.isclose(timg, jimg, rtol=1e-3, atol=1e-4).all(axis=-1)
+    assert close.mean() >= 0.995, close.mean()
+    assert abs(timg.mean() - jimg.mean()) <= 1e-4 * abs(jimg.mean())
+    for n, g_t, g_j in zip(LEAVES, tg, jg):
+        g_j = np.asarray(g_j)
+        assert np.abs(g_j).max() > 0, n
+        np.testing.assert_allclose(g_t.numpy(), g_j, rtol=1e-3, atol=1e-5, err_msg=n)
