@@ -187,7 +187,15 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    the first gather against theirs. Then 128 spp off and on, and 512 spp with
    `remat` unset: `ops.remat.needed` must choose no checkpoint at 64 spp and
    checkpoints at 512, and the 512-spp peak must be below the 64-spp peak
-   without remat; the growth of the peak with spp off and on.
+   without remat; the growth of the peak with spp off and on. Last, the size
+   estimate of `remat.needed` on three scenes: Cornell and `sphere_triad`
+   (gradients also to the spheres' centres and radii) at 256x256 with
+   their own calibrated compaction, remat off at 64 and 128 spp; for them
+   and the mesh the peak's growth a spp and the bytes a lane-bounce it
+   implies (growth / (W H lanes), lanes counted as `needed` counts them),
+   printed beside `GRAPH_BYTES`; none may pass `GRAPH_BYTES / FREE_SHARE`,
+   past which a graph that `remat` unset leaves whole could outgrow the
+   card's free memory.
 
 Then, on lines of their own: the kernels' JSON record, the nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA
@@ -3032,9 +3040,13 @@ def phase_examples(torch, dev, card):
 REMAT_SPP = (128, 512)       # the remat runs beyond the 64-spp cell
 
 
-def run_fwd_bwd(torch, cs, spp, config):
-    """`bench.fwd_bwd` on `cs` at WIDTH x HEIGHT: (image, gradients, s, peak
-    GiB, peak GiB above what was allocated before, launches by kernel)."""
+SPHERE_LEAVES = ("mat_albedo", "light_radiance", "tri_v0", "sph_center", "sph_radius")
+
+
+def run_fwd_bwd(torch, cs, spp, config, names=None):
+    """`bench.fwd_bwd` on `cs` at WIDTH x HEIGHT (with gradients to `names`
+    where given): (image, gradients, s, peak GiB, peak GiB above what was
+    allocated before, launches by kernel)."""
     from mafrixraytracing_torch import bench
     from mafrixraytracing_torch.ops import cuda
 
@@ -3043,7 +3055,8 @@ def run_fwd_bwd(torch, cs, spp, config):
     torch.cuda.reset_peak_memory_stats()
     cuda.reset_launches()
     t0 = time.perf_counter()
-    img, grads = bench.fwd_bwd(cs.scene, cs.camera, WIDTH, HEIGHT, spp, 0, config)
+    img, grads = bench.fwd_bwd(cs.scene, cs.camera, WIDTH, HEIGHT, spp, 0, config,
+                               names or bench.GRAD_LEAVES)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(cuda.LAUNCHES)
@@ -3143,7 +3156,61 @@ def phase_remat(torch):
         print(f"  peak memory's growth with spp, remat {name}: "
               f"{(hi - lo) / (REMAT_SPP[0] - SPP):.5f} GiB a spp ({lo:.3f} GiB at {SPP}, "
               f"{hi:.3f} at {REMAT_SPP[0]})")
+    del runs, img, grads
+    graphs = {"mesh36996": (peaks[SPP, "off"], peaks[REMAT_SPP[0], "off"], config)}
+    graphs.update(graph_peaks(torch))
+    limit = remat.GRAPH_BYTES / remat.FREE_SHARE
+    print(f"  remat.needed's estimate, {remat.GRAPH_BYTES} B a lane-bounce (checkpoints "
+          f"past {remat.FREE_SHARE} of the free memory; so no scene may pass "
+          f"{limit:.0f} B), against each scene's peak growth without remat, "
+          f"{W}x{H}, {SPP} -> {REMAT_SPP[0]} spp:")
+    for name, (lo, hi, cfg) in graphs.items():
+        lanes = sum(cfg.compact) if cfg.compact else cfg.max_depth
+        growth = (hi - lo) / (REMAT_SPP[0] - SPP)
+        per_lane = growth * 2**30 / (W * H * lanes)
+        print(f"  {name}: {growth:.5f} GiB a spp ({lo:.3f} GiB at {SPP}, {hi:.3f} at "
+              f"{REMAT_SPP[0]}), {lanes:.4f} lane-bounces a pixel, {per_lane:.1f} B a "
+              f"lane-bounce ({per_lane / remat.GRAPH_BYTES:.3f} of GRAPH_BYTES)")
+        check(0 < per_lane <= limit,
+              f"{name}'s graph takes {per_lane:.1f} B a lane-bounce: remat unset could "
+              f"let it outgrow the card's free memory (the estimate's margin is {limit:.0f})")
     print(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def graph_peaks(torch):
+    """Cornell and `sphere_triad` (its gradients also to the spheres) at
+    WIDTH x HEIGHT with their own calibrated compaction, remat off: {name:
+    (peak GiB at SPP, at REMAT_SPP[0], config)}."""
+    import dataclasses
+
+    from mafrixraytracing_torch import bench
+    from mafrixraytracing_torch.scene.builtin import cornell_box, sphere_triad
+    from mafrixraytracing_torch.scene.compiler import compile_scene
+
+    out = {}
+    for name, spec, names in (("cornell", cornell_box, None),
+                              ("sphere_triad", sphere_triad, SPHERE_LEAVES)):
+        cs = compile_scene(spec(WIDTH, HEIGHT))
+        config, _ = bench.calibrated_config(cs.scene, cs.camera, WIDTH, HEIGHT, DEPTH)
+        off = dataclasses.replace(config, remat=False)
+        peaks = []
+        for spp in (SPP, REMAT_SPP[0]):
+            img, grads, sec, peak, above, launches = run_fwd_bwd(torch, cs, spp, off, names)
+            mean = float(img.mean())
+            print(f"  {name}, remat off at {spp} spp, compact "
+                  f"{[round(c, 4) for c in config.compact]}: {sec:.3f} s/iter, peak "
+                  f"{peak:.3f} GiB ({above:.3f} above the scene), mean {mean:.5f}, "
+                  f"launches {used(launches)}")
+            check(bool(torch.isfinite(img).all()) and mean > 0,
+                  f"the {name} {spp}-spp image is not sane")
+            check(all(bool(torch.isfinite(g).all()) for g in grads),
+                  f"a {name} {spp}-spp gradient is not finite")
+            check(all(float(g.abs().max()) > 0 for g in grads[:2]),
+                  f"a {name} {spp}-spp albedo or radiance gradient is 0")
+            peaks.append(peak)
+            del img, grads
+        out[name] = (*peaks, config)
+    return out
 
 
 def fwd_bwd_in_turns(parent: str) -> int:
@@ -3248,7 +3315,7 @@ def main() -> int:
     print("[13] render_spheres, baseline_matrix, fit_inverse and the scaling harness")
     phase_examples(torch, dev, info["nvidia_smi"])
 
-    print("[14] memory-bounded gradients (remat) on the mesh")
+    print("[14] memory-bounded gradients (remat) on the mesh; its estimate on three scenes")
     phase_remat(torch)
 
     pallas = "mafrixraytracing_tpu/ops/intersect_pallas.py"

@@ -104,14 +104,14 @@ def calibrated_config(scene, camera, width, height, depth):
     return dataclasses.replace(base, compact=tuple(sched)), prof
 
 
-def fwd_bwd(scene, camera, width, height, spp, seed, config):
-    """Render and back-propagate the mean image to (albedo, radiance,
-    tri_v0). Returns the image and the three gradients."""
-    leaves = [scene.mat_albedo.detach().clone().requires_grad_(),
-              scene.light_radiance.detach().clone().requires_grad_(),
-              scene.tri_v0.detach().clone().requires_grad_()]
-    s = scene.replace(mat_albedo=leaves[0], light_radiance=leaves[1],
-                      tri_v0=leaves[2])
+GRAD_LEAVES = ("mat_albedo", "light_radiance", "tri_v0")
+
+
+def fwd_bwd(scene, camera, width, height, spp, seed, config, names=GRAD_LEAVES):
+    """Render and back-propagate the mean image to the scene fields `names`.
+    Returns the image and the gradients."""
+    leaves = [getattr(scene, n).detach().clone().requires_grad_() for n in names]
+    s = scene.replace(**dict(zip(names, leaves)))
     img = P.render_image(s, camera, width, height, spp,
                          rng.root_key(seed, scene.tri_v0.device), config)
     img.mean().backward()

@@ -22,8 +22,10 @@ Every record's `detail` holds the device's name and power limit. On the
 card the worlds go up to `torch.cuda.device_count()`: NCCL puts one rank on
 a card, so a machine with one card runs the world of one only and prints
 why there is no efficiency line. With `--cpu` the worlds go up to
-`--max-world` over gloo; the ranks then share the host's cores, so the
-lines carry `"virtual_mesh": true` and are no measure of an interconnect.
+`--max-world` over gloo; the ranks then share the host's cores (each with
+torch's default pool of threads unless `OMP_NUM_THREADS` splits them), so
+the lines carry `"virtual_mesh": true` and are no measure of an
+interconnect.
 
     python -m mafrixraytracing_torch.bench_scaling [--cpu] [--max-world N]
 
@@ -71,8 +73,6 @@ def _rank(rank: int, world: int, job: dict) -> None:
     train steps. Rank 0 prints and leaves its image and rays/s in the job's
     directory for the larger worlds."""
     cpu = job["cpu"]
-    if cpu:
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     out = job["dir"]
     launch.init(f"file://{os.path.join(out, f'store{world}')}", world, rank,
                 device="cpu" if cpu else None)

@@ -74,7 +74,6 @@ def sharded_train_step(mesh, device=None):
 def _dryrun_worker(rank: int, n: int, store: str, device: str | None) -> None:
     from mafrixraytracing_torch.parallel import launch
 
-    torch.set_num_threads(1)
     launch.init(f"file://{store}", n, rank, device=device)
     mesh = launch.global_mesh()
     if (mesh.rank, mesh.world) != (rank, n):

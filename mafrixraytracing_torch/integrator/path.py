@@ -99,6 +99,17 @@ def _take(state: PathState, perm: torch.Tensor, n: int) -> PathState:
                      g(state.specular), g(state.keys), g(state.times))
 
 
+def _retire(alive, o: V3, d: V3):
+    """The next ray of each lane: a dead lane's becomes a fixed finite ray
+    with no graph. Its own is built from a hit that may be a miss, whose
+    attributes come from a row it did not hit (on a sphere scene, a normal
+    of ~1e8 from a padding row); over the next bounces it grows to inf, and
+    the masked computations on it return NaN cotangents to the scene."""
+    zero = torch.zeros_like(o.x)
+    return (v3.where(alive, o, V3(zero, zero, zero)),
+            v3.where(alive, d, V3(zero, zero, zero + 1.0)))
+
+
 def _bounce(scene, state: PathState, bounce: int, config: PathTracerConfig,
             packed: torch.Tensor) -> PathState:
     """One wavefront bounce of the physical estimator (JAX
@@ -181,6 +192,7 @@ def _bounce(scene, state: PathState, bounce: int, config: PathTracerConfig,
         alive = alive & (u < p)
 
     thr = v3.where(alive, thr, zero)
+    o, d = _retire(alive, o, d)
     return PathState(o, d, thr, rad, bs.pdf, alive, bs.specular, state.keys,
                      state.times)
 
@@ -230,9 +242,9 @@ def _bounce_mafrix(scene, state: PathState, bounce: int,
 
     alive = alive & bs.valid & ~emitter
     flip = torch.where(v3.dot(hit.normal, bs.wi) >= 0.0, RAY_EPS, -RAY_EPS)
-    o = hit.point + hit.normal * flip
+    o, d = _retire(alive, hit.point + hit.normal * flip, bs.wi)
     thr = v3.where(alive, thr, zero)
-    return PathState(o, bs.wi, thr, rad, state.prev_pdf, alive, state.specular,
+    return PathState(o, d, thr, rad, state.prev_pdf, alive, state.specular,
                      state.keys, state.times)
 
 

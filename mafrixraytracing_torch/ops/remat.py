@@ -33,7 +33,10 @@ from torch.utils.checkpoint import checkpoint
 
 # Bytes of autograd graph a lane holds a bounce in a gradient of the
 # physical estimator: 0.0904 GiB a spp at 256x256 on the 36,996-face mesh
-# with the bench's compaction (2.2255 lane-bounces a pixel), rounded up
+# with the bench's compaction (2.2255 lane-bounces a pixel), rounded up.
+# Cornell's graph takes 664 B a lane-bounce, sphere_triad's (gradients also
+# to the spheres) 848 B (H100, chip_smoke.py phase 14): FREE_SHARE leaves
+# room for up to GRAPH_BYTES / FREE_SHARE = 1,400 B
 GRAPH_BYTES = 700
 # Checkpoint when the estimated graph would take more than this share of the
 # card's free memory

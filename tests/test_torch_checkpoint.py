@@ -36,14 +36,6 @@ W = H = 16
 CFG = PathTracerConfig(max_depth=2, rr_enable=False)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def accumulate(scene, camera, film, seed, start, count):
     key = rng.root_key(seed, "cpu")
     for s in range(start, start + count):

@@ -38,6 +38,7 @@ from mafrixraytracing_tpu.ops import intersect_pallas as ip
 from test_torch_fused import random_boxes
 from test_torch_path import COMPACT, cornell
 from test_torch_super import CASES, both_v3, rays, scenes
+import torch_port_helpers  # noqa: F401  (sizes torch's threads to the run)
 
 T_MIN = 1e-3
 CULL_TILES = 4          # tiles a block of csrc/cull.cu

@@ -5,8 +5,12 @@ operands on two devices, and the scatter-add's card test holds the plain
 version to a float64 sum.
 
 Imports no JAX. `torch.cuda` is patched where a card would be needed.
+
+The port's tests size torch's threads to the run (`torch_port_helpers`):
+held here too.
 """
 import inspect
+import os
 from contextlib import contextmanager
 from types import SimpleNamespace
 
@@ -18,6 +22,20 @@ from mafrixraytracing_torch.core.device import resolve
 from mafrixraytracing_torch.ops import cuda
 from mafrixraytracing_torch.ops import intersect as oi
 from mafrixraytracing_torch.ops import unpack as ou
+from torch_port_helpers import run_threads, worker_threads
+
+
+def test_each_worker_takes_its_share_of_the_cpus():
+    assert worker_threads(8, 6) == 1
+    assert worker_threads(8, 1) == 8
+    assert worker_threads(1, 6) == 1
+    assert worker_threads(8, 3) == 2
+    want = worker_threads(os.cpu_count() or 1,
+                          int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+    assert run_threads() == want
+    assert torch.get_num_threads() == want
+    # the processes a test starts inherit the count
+    assert os.environ["OMP_NUM_THREADS"] == str(want)
 
 
 def test_resolve_none_is_the_current_card(monkeypatch):

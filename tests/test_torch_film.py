@@ -20,6 +20,7 @@ import torch
 from mafrixraytracing_torch.film import image as img_io
 from mafrixraytracing_torch.film.preview import LivePreview, _Handler
 from mafrixraytracing_tpu.film import image as jimg_io
+import torch_port_helpers  # noqa: F401  (sizes torch's threads to the run)
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 

@@ -33,16 +33,6 @@ JCFG = JP.PathTracerConfig(max_depth=2, rr_enable=False, backend="jnp")
 TCFG = TP.PathTracerConfig(max_depth=2, rr_enable=False)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The tensors here are tiny: more intra-op threads only contend with
-    the other test workers'."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def setup():
     js, jcam, ts, tcam = floor_scene()

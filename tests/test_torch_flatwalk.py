@@ -32,6 +32,7 @@ from mafrixraytracing_tpu.scene.compiler import compile_scene as jcompile
 from test_torch_kernels import (CLOSEST_CASES, FLAT_CASES, behind_case, closest_case, flat_case,
                                 flat_walks, pair_walk_model)
 from test_torch_super import both_v3, carry_over, soup_spec
+import torch_port_helpers  # noqa: F401  (sizes torch's threads to the run)
 
 T_MIN = 1e-3
 MASK32 = np.uint64(0xFFFFFFFF)

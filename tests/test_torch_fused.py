@@ -40,6 +40,7 @@ from test_torch_super import (
     rays,
     scenes,
 )
+import torch_port_helpers  # noqa: F401  (sizes torch's threads to the run)
 
 T_MIN = 1e-3
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -26,6 +26,7 @@ from mafrixraytracing_torch.integrator.path import (
 from mafrixraytracing_torch.scene import spec as S
 from mafrixraytracing_torch.scene.builtin import cornell_box
 from mafrixraytracing_torch.scene.compiler import compile_scene
+import torch_port_helpers  # noqa: F401  (sizes torch's threads to the run)
 
 CFG = PathTracerConfig(max_depth=3, rr_enable=False)
 

@@ -32,6 +32,7 @@ from mafrixraytracing_tpu.ops import unpack_pallas as jup
 from mafrixraytracing_tpu.scene import builtin as jbuiltin
 from mafrixraytracing_tpu.scene import spec as JS
 from mafrixraytracing_tpu.scene.compiler import compile_scene as jcompile
+import torch_port_helpers  # noqa: F401  (sizes torch's threads to the run)
 
 T_MIN = 1e-3
 

@@ -27,6 +27,7 @@ from mafrixraytracing_tpu.io.obj import load_obj as jload_obj
 from mafrixraytracing_tpu.scene import assets as jassets
 from mafrixraytracing_tpu.scene.compiler import compile_scene as jcompile
 from mafrixraytracing_tpu.scene.xml_parser import parse_scene_xml as jparse
+import torch_port_helpers  # noqa: F401  (sizes torch's threads to the run)
 
 MODEL_OBJ = """\
 # two groups, an MTL, uvs, normals, negative indices, a quad and a 5-gon

@@ -51,6 +51,7 @@ from mafrixraytracing_torch.ops import unpack as ou
 from mafrixraytracing_torch.scene import builtin
 from mafrixraytracing_torch.scene import spec as S
 from mafrixraytracing_torch.scene.compiler import compile_scene
+import torch_port_helpers  # noqa: F401  (sizes torch's threads to the run)
 
 T_MIN = 1e-3
 

@@ -27,6 +27,7 @@ from mafrixraytracing_tpu.integrator import path as JP
 from mafrixraytracing_tpu.scene import builtin as jbuiltin
 from mafrixraytracing_tpu.scene import spec as JS
 from mafrixraytracing_tpu.scene.compiler import compile_scene as jcompile
+import torch_port_helpers  # noqa: F401  (sizes torch's threads to the run)
 
 
 def lights_spec(S, size=16):

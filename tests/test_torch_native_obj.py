@@ -12,6 +12,7 @@ import pytest
 from mafrixraytracing_torch.io import native as tnative
 from mafrixraytracing_torch.io import obj as tobj
 from mafrixraytracing_tpu.io import obj as jobj
+import torch_port_helpers  # noqa: F401  (sizes torch's threads to the run)
 
 ARRAYS = ("vertices", "uvs", "normals", "face_v", "face_t", "face_n",
           "face_group", "face_material")

@@ -29,6 +29,7 @@ from mafrixraytracing_torch.core import transform as T
 from mafrixraytracing_torch.raster import pipeline as R
 from mafrixraytracing_tpu.core import transform as JT
 from mafrixraytracing_tpu.raster import pipeline as JR
+import torch_port_helpers  # noqa: F401  (sizes torch's threads to the run)
 
 W = H = 24
 N = 64                      # side of the mesh renders

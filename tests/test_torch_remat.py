@@ -10,6 +10,15 @@ kernel C on the card) once more a fetch, in the backward. With `remat`
 unset, `render_image` follows `ops.remat.needed`, whose choice is held on
 both sides of its threshold with the card's free memory patched.
 
+Beyond Cornell, `remat` on against off at 16x16 x 4 spp, depth 3, wavefront
+256, without compaction: `sphere_triad` with gradients to the spheres'
+centres and radii and the albedo; the moving sphere of
+`tests/test_torch_motion_blur.py` with `motion_blur=True`; a Cornell box
+with a checker-textured floor and back wall, once with gradients to
+`tri_v0` (the texture lookup kept by the checkpoint, `remat.keep`) and once
+to `tex_atlas` (the lookup with a graph, computed again in the recompute).
+Image and gradients are `torch.equal`.
+
 The port against JAX: `remat=True` against JAX's default (`remat=True`),
 depth 5 without compaction, at the tolerances of `tests/test_torch_path.py`:
 the image within rtol 1e-3 / atol 1e-4 on at least 99.5% of the pixels and
@@ -30,9 +39,15 @@ from mafrixraytracing_torch.integrator import path as TP
 from mafrixraytracing_torch.ops import intersect as oi
 from mafrixraytracing_torch.ops import remat
 from mafrixraytracing_torch.ops import unpack as ou
+from mafrixraytracing_torch.geometry import intersect as tgi
+from mafrixraytracing_torch.materials import texture as ttex
+from mafrixraytracing_torch.scene import builtin as tbuiltin
+from mafrixraytracing_torch.scene import spec as TS
+from mafrixraytracing_torch.scene.compiler import compile_scene as tcompile
 from mafrixraytracing_tpu.integrator import path as JP
 from mafrixraytracing_tpu.scene import builtin as jbuiltin
 from mafrixraytracing_tpu.scene.compiler import compile_scene as jcompile
+from test_torch_motion_blur import moving_scene
 from torch_port_helpers import carry_camera, carry_scene
 
 W = H = 16
@@ -56,11 +71,11 @@ def configs(cornell):
         for depth in (3, 5)}
 
 
-def fwd_bwd(ts, tcam, config, counts=None):
-    """(image, the three gradients, the counts after the forward) of the
-    mean image at seed 3."""
-    leaves = [getattr(ts, n).clone().requires_grad_() for n in LEAVES]
-    s = ts.replace(**dict(zip(LEAVES, leaves)))
+def fwd_bwd(ts, tcam, config, counts=None, names=LEAVES):
+    """(image, the gradients to `names`, the counts after the forward) of
+    the mean image at seed 3."""
+    leaves = [getattr(ts, n).clone().requires_grad_() for n in names]
+    s = ts.replace(**dict(zip(names, leaves)))
     img = TP.render_image(s, tcam, W, H, SPP, trng.root_key(3, "cpu"), config)
     forward = None if counts is None else dict(counts)
     img.mean().backward()
@@ -173,6 +188,79 @@ def test_needed_decides_by_the_graph_and_free_memory(
                               remat=remat_field)
     with torch.set_grad_enabled(grad):
         assert remat.needed(cfg, spp, 256 * 256, torch.device(device)) is want
+
+
+def textured_cornell():
+    """Cornell with a checker texture on the floor (two tiles a side) and
+    on the back wall."""
+    spec = tbuiltin.cornell_box(W, H)
+    uv = np.float32([[0, 0], [1, 0], [1, 1], [0, 1]])
+    fu = np.int32([[0, 1, 2], [0, 2, 3]])
+    shapes = list(spec.shapes)
+    for i, scale in ((0, 2.0), (2, 1.0)):       # the floor, the back wall
+        m = shapes[i].mesh
+        shapes[i] = TS.ShapeSpec(TS.Mesh(vertices=m.vertices, faces=m.faces,
+                                         uvs=uv * scale, face_uvs=fu),
+                                 len(spec.materials))
+    return dataclasses.replace(
+        spec, shapes=shapes,
+        materials=[*spec.materials, TS.MaterialSpec(albedo=(1.0, 1.0, 1.0),
+                                                    texture_id=0)],
+        textures=[ttex.checker_texture((0.9, 0.9, 0.9), (0.1, 0.3, 0.1))])
+
+
+def beyond_cornell(case):
+    """(scene, camera, config, the gradients' names in each run)."""
+    cfg = TP.PathTracerConfig(max_depth=3, wavefront=WAVEFRONT)
+    if case == "motion_blur":
+        _, ts, tcam = moving_scene((1.6, 0.0, 0.0))
+        return (ts, tcam, dataclasses.replace(cfg, motion_blur=True),
+                [("sph_center", "mat_albedo", "light_radiance")])
+    spec = tbuiltin.sphere_triad(W, H) if case == "sphere_triad" else textured_cornell()
+    cs = tcompile(spec, device="cpu")
+    if case == "sphere_triad":
+        return cs.scene, cs.camera, cfg, [("sph_center", "sph_radius", "mat_albedo")]
+    return cs.scene, cs.camera, cfg, [("tri_v0", "mat_albedo"), ("tex_atlas",)]
+
+
+@pytest.mark.parametrize("case", ["sphere_triad", "motion_blur", "textured"])
+def test_remat_is_bit_equal_beyond_cornell(monkeypatch, case):
+    ts, tcam, cfg, runs = beyond_cornell(case)
+    kept, looked_up = [], []
+    keep, sample = remat.keep, tgi.sample_atlas
+
+    def on_keep(kind, fn):
+        kept.append(kind)
+        return keep(kind, fn)
+
+    def on_sample(atlas, *a, **k):
+        looked_up.append(atlas.requires_grad)
+        return sample(atlas, *a, **k)
+
+    monkeypatch.setattr(remat, "keep", on_keep)
+    monkeypatch.setattr(tgi, "sample_atlas", on_sample)
+    for names in runs:
+        img0, grads0, _ = fwd_bwd(ts, tcam, dataclasses.replace(cfg, remat=False),
+                                  names=names)
+        kept.clear()
+        looked_up.clear()
+        img, grads, _ = fwd_bwd(ts, tcam, dataclasses.replace(cfg, remat=True),
+                                names=names)
+        assert torch.isfinite(img0).all() and img0.mean() > 0
+        assert torch.equal(img, img0), names
+        for n, g, g0 in zip(names, grads, grads0):
+            assert g0.abs().max() > 0, n
+            assert torch.equal(g, g0), n
+        assert "closest" in kept
+        if case == "textured":
+            # the lookup is kept while the atlas needs no gradient, and
+            # computed with a graph (in the forward and the recompute) once
+            # it does
+            grad_atlas = "tex_atlas" in names
+            assert ("texture" in kept) is not grad_atlas
+            assert looked_up and all(r is grad_atlas for r in looked_up)
+        else:
+            assert "texture" not in kept and not looked_up
 
 
 def test_remat_without_grad_records_nothing(cornell, configs, monkeypatch):

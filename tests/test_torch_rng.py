@@ -11,6 +11,7 @@ import torch
 
 from mafrixraytracing_torch.core import rng as trng
 from mafrixraytracing_tpu.core import rng as jrng
+import torch_port_helpers  # noqa: F401  (sizes torch's threads to the run)
 
 SEEDS = [0, 1, 123, 2**31 + 5]
 

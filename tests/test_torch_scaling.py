@@ -15,6 +15,7 @@ import pytest
 from mafrixraytracing_torch import bench_scaling
 from mafrixraytracing_torch.integrator.path import PathTracerConfig
 from mafrixraytracing_torch.parallel.render import same_image_any_world
+import torch_port_helpers  # noqa: F401  (sizes torch's threads to the run)
 
 SIZE = {"SCALE_WIDTH": "8", "SCALE_HEIGHT": "8", "SCALE_SPP": "1", "SCALE_DEPTH": "2"}
 

@@ -24,6 +24,7 @@ import torch
 
 from mafrixraytracing_torch.ops import unpack as ou
 from mafrixraytracing_tpu.ops import unpack_pallas as jun
+import torch_port_helpers  # noqa: F401  (sizes torch's threads to the run)
 
 CHUNK = ou.SCATTER_CHUNK
 

@@ -25,6 +25,7 @@ from mafrixraytracing_tpu.camera.camera import Camera as JCamera
 from mafrixraytracing_tpu.geometry import intersect as jisect
 from mafrixraytracing_tpu.scene import builtin as jbuiltin
 from mafrixraytracing_tpu.scene.compiler import compile_scene as jcompile
+import torch_port_helpers  # noqa: F401  (sizes torch's threads to the run)
 
 SCENES = ["cornell_box", "sphere_triad", "furnace"]
 

@@ -28,6 +28,7 @@ from mafrixraytracing_tpu.integrator import path as JP
 from mafrixraytracing_tpu.materials import texture as jtex
 from mafrixraytracing_tpu.scene import spec as JS
 from mafrixraytracing_tpu.scene.compiler import compile_scene as jcompile
+import torch_port_helpers  # noqa: F401  (sizes torch's threads to the run)
 
 
 def test_host_textures_equal():

@@ -12,6 +12,7 @@ import torch
 
 from mafrixraytracing_torch.core import transform as T
 from mafrixraytracing_tpu.core import transform as JT
+import torch_port_helpers  # noqa: F401  (sizes torch's threads to the run)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 ANGLES = (0.0, 90.0, -37.5, 180.0, 271.3)

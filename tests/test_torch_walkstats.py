@@ -29,6 +29,7 @@ from mafrixraytracing_tpu.scene import spec as JS
 
 from test_torch_kernels import behind_case, flat_case, flat_walks
 from test_torch_super import both_v3, carry_over
+import torch_port_helpers  # noqa: F401  (sizes torch's threads to the run)
 
 T_MIN = 1e-3
 

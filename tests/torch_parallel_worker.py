@@ -3,7 +3,8 @@
 `torch.multiprocessing.spawn` imports the module that defines the worker in
 every child, so this one imports no JAX: the tests hand scenes over as files
 of numpy arrays (`save_job`) and read results back as files (`load_result`).
-Every worker runs on one CPU thread, joins a gloo group through a file store
+Every worker takes the test run's count of torch threads (`torch_port_helpers`,
+which it imports without JAX), joins a gloo group through a file store
 under the test's temp directory, and leaves the group when done; the parent
 joins with a time limit (`parallel.launch.spawn_local`).
 """
@@ -18,6 +19,7 @@ from mafrixraytracing_torch.integrator import path as P
 from mafrixraytracing_torch.opt import inverse
 from mafrixraytracing_torch.parallel import launch, render
 from mafrixraytracing_torch.scene.compiler import from_jax_arrays
+import torch_port_helpers  # noqa: F401  (sizes torch's threads to the run)
 
 
 def save_job(path, **job):
@@ -36,7 +38,6 @@ def hang(rank):
 
 
 def _join(rank, n, out_dir):
-    torch.set_num_threads(1)
     assert launch.init(f"file://{os.path.join(out_dir, 'store')}", n, rank,
                        device="cpu")
     assert launch.init() is True        # idempotent

@@ -1,6 +1,22 @@
-"""Helpers of the port's training tests: carry a JAX scene and camera over to
-the port as numpy arrays, and the floor + area light scene of
-`tests/test_checkpoint.py`. Not a test module."""
+"""Helpers of the port's tests. Not a test module.
+
+Every `tests/test_torch_*.py` imports this module, so that torch's intra-op
+threads are sized to the test run at its import: `pytest -n N` starts N
+worker processes on the machine's CPUs, and each worker's torch would
+otherwise start a pool of one thread a CPU, N times as many threads as CPUs
+in all, which spin against each other. Each worker takes its share
+(`worker_threads`), and the processes a test starts (the gloo worlds of
+`tests/torch_parallel_worker.py`, the port's CPU entry points) get the same
+count through `OMP_NUM_THREADS`. A lone `pytest` keeps every CPU.
+
+The rest carries a JAX scene and camera over to the port as numpy arrays,
+and builds the floor + area light scene of `tests/test_checkpoint.py`. The
+JAX package is imported only inside those functions: the card's machine,
+which has no JAX, runs `tests/test_torch_kernels.py` and
+`tests/test_torch_device.py` with this module too.
+"""
+import os
+
 import numpy as np
 import torch
 
@@ -10,8 +26,21 @@ from mafrixraytracing_torch.scene.compiler import (
     TENSOR_FIELDS,
     from_jax_arrays,
 )
-from mafrixraytracing_tpu.scene import spec as S
-from mafrixraytracing_tpu.scene.compiler import compile_scene as jcompile
+
+
+def worker_threads(cpus: int, workers: int) -> int:
+    """Torch threads for one of `workers` processes that share `cpus`."""
+    return max(1, cpus // workers)
+
+
+def run_threads() -> int:
+    """This test process's share: the CPUs over pytest-xdist's workers."""
+    return worker_threads(os.cpu_count() or 1,
+                          int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+
+
+torch.set_num_threads(run_threads())
+os.environ["OMP_NUM_THREADS"] = str(run_threads())
 
 CAMERA_FIELDS = ("position", "topleft", "right_vec", "down_vec", "lens_right",
                  "lens_up", "lens_radius", "focus_scale")
@@ -31,6 +60,8 @@ def carry_camera(jcam):
 
 
 def floor_spec(albedo=(0.4, 0.6, 0.5), radiance=10.0, camera=None, light=True):
+    from mafrixraytracing_tpu.scene import spec as S
+
     floor = S.make_rect_mesh((-2, 0, 2), (2, 0, 2), (2, 0, -2), (-2, 0, -2))
     lamp = S.make_rect_mesh((-0.6, 2.0, -0.6), (0.6, 2.0, -0.6),
                             (0.6, 2.0, 0.6), (-0.6, 2.0, 0.6))
@@ -44,6 +75,8 @@ def floor_spec(albedo=(0.4, 0.6, 0.5), radiance=10.0, camera=None, light=True):
 
 def floor_scene(**kw):
     """(JAX scene, JAX camera, port scene, port camera) of `floor_spec`."""
+    from mafrixraytracing_tpu.scene.compiler import compile_scene as jcompile
+
     jcs = jcompile(floor_spec(**kw))
     return jcs.scene, jcs.camera, carry_scene(jcs.scene), carry_camera(jcs.camera)
 
