@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mafrixraytracing_torch.utils.trace import spanned
+
 # 128 triangles per cluster: the CUDA kernels stage one cluster (12 x 128
 # packed components, 6 KB) in shared memory and test it against a 128-ray tile.
 CLUSTER_SIZE = 128
@@ -180,6 +182,7 @@ def _super_bounds_np(cluster_min: np.ndarray, cluster_max: np.ndarray):
     return smin, smax
 
 
+@spanned("refresh")
 def refresh_clusters(scene):
     """Recompute cluster and supercluster AABBs on the device from the
     scene's (possibly updated) triangle tensors, as the JAX package's

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from mafrixraytracing_torch.core.device import resolve
+from mafrixraytracing_torch.utils.trace import spanned
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -48,9 +49,14 @@ def root_key(seed: int, device=None) -> torch.Tensor:
                         device=resolve(device))
 
 
+@spanned("rng")
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """`jax.random.fold_in` for keys of shape (..., 2); `data` (int or int
     tensor, broadcasting against the key's batch shape) is taken as uint32."""
+    return _fold_in(key, data)
+
+
+def _fold_in(key: torch.Tensor, data) -> torch.Tensor:
     if isinstance(data, torch.Tensor):
         data = data.to(torch.int64) & _MASK
     else:
@@ -59,29 +65,34 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 
 
+@spanned("rng")
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """`jax.random.split` of one (2,) key -> (num, 2). Under the partitionable
     threefry (the JAX default) child i hashes the counter (hi, lo) = (0, i)
     and keeps both output words, which is `fold_in(key, i)`."""
-    return fold_in(key, torch.arange(num, dtype=torch.int64, device=key.device))
+    return _fold_in(key, torch.arange(num, dtype=torch.int64, device=key.device))
 
 
+@spanned("rng")
 def pixel_keys(key: torch.Tensor, n: int) -> torch.Tensor:
     """One key per element of a flat batch: fold_in of the batch index."""
-    return fold_in(key, torch.arange(n, dtype=torch.int64, device=key.device))
+    return _fold_in(key, torch.arange(n, dtype=torch.int64, device=key.device))
 
 
+@spanned("rng")
 def sample_key(key: torch.Tensor, sample_idx) -> torch.Tensor:
-    return fold_in(key, sample_idx)
+    return _fold_in(key, sample_idx)
 
 
+@spanned("rng")
 def bounce_key(key: torch.Tensor, bounce_idx) -> torch.Tensor:
-    return fold_in(key, bounce_idx)
+    return _fold_in(key, bounce_idx)
 
 
+@spanned("rng")
 def split_dim(key: torch.Tensor, dim: int) -> torch.Tensor:
     """Per-dimension key under one logical draw site."""
-    return fold_in(key, dim)
+    return _fold_in(key, dim)
 
 
 def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
@@ -91,12 +102,13 @@ def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
     return f - 1.0
 
 
+@spanned("rng")
 def uniforms(key: torch.Tensor, dim: int, shape=()) -> torch.Tensor:
     """Per-key uniform draws at draw site `dim`: keys (B, 2) -> (B, *shape)
     floats in [0, 1), equal to `jax.random.uniform(fold_in(k, dim), shape)`
     for every key (partitionable threefry: element j hashes counter
     (hi, lo) = (0, j) and xors the two output words)."""
-    k = split_dim(key, dim)
+    k = _fold_in(key, dim)
     n = 1
     for s in shape:
         n *= s

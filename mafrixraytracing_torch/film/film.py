@@ -13,6 +13,7 @@ import torch
 
 from mafrixraytracing_torch.core.device import resolve
 from mafrixraytracing_torch.film import tonemap as tm
+from mafrixraytracing_torch.utils.trace import spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +29,7 @@ class FilmState:
                                      device=device),
             frame_count=torch.zeros((), dtype=torch.int32, device=device))
 
+    @spanned("film")
     def add_frame(self, frame: torch.Tensor) -> "FilmState":
         """Accumulate one frame of per-pixel radiance (reference
         `Film.AddSample`, `Film.fs:18-23`). Returns a new state."""
@@ -47,5 +49,6 @@ class FilmState:
         `Scene.fs:315-330`)."""
         return tm.tonemap(self.mean)
 
+    @spanned("film")
     def to_bytes(self) -> torch.Tensor:
         return tm.to_bytes(self.display())

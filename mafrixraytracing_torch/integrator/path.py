@@ -46,6 +46,7 @@ from mafrixraytracing_torch.materials.bsdf import (
 )
 from mafrixraytracing_torch.ops import dispatch, remat
 from mafrixraytracing_torch.ops.intersect import TILE
+from mafrixraytracing_torch.utils.trace import spanned
 
 RAY_EPS = 1e-3
 
@@ -110,6 +111,7 @@ def _retire(alive, o: V3, d: V3):
             v3.where(alive, d, V3(zero, zero, zero + 1.0)))
 
 
+@spanned("bounce")
 def _bounce(scene, state: PathState, bounce: int, config: PathTracerConfig,
             packed: torch.Tensor) -> PathState:
     """One wavefront bounce of the physical estimator (JAX
@@ -197,6 +199,7 @@ def _bounce(scene, state: PathState, bounce: int, config: PathTracerConfig,
                      state.times)
 
 
+@spanned("bounce")
 def _bounce_mafrix(scene, state: PathState, bounce: int,
                    config: PathTracerConfig, packed: torch.Tensor) -> PathState:
     """One wavefront bounce of the reference-parity estimator (JAX
@@ -501,6 +504,7 @@ def _spp_tile_shape(G: int):
     return max(1, px // h), h
 
 
+@spanned("render")
 def render_image(scene, camera, width: int, height: int, spp: int,
                  key: torch.Tensor,
                  config: PathTracerConfig = PathTracerConfig()) -> torch.Tensor:
@@ -568,6 +572,7 @@ def render_sample_batch(scene, camera, width: int, height: int, sample_idx: int,
                               sample_offset=sample_idx)
 
 
+@spanned("render")
 def render_flat_pixels(scene, camera, pixel_ids: torch.Tensor, width: int,
                        height: int, spp: int, key: torch.Tensor,
                        config: PathTracerConfig,

@@ -73,6 +73,7 @@ from mafrixraytracing_torch.accel.clusters import CLUSTER_SIZE, SUPER
 from mafrixraytracing_torch.core.v3 import V3
 from mafrixraytracing_torch.geometry.intersect import closest_sphere_soa
 from mafrixraytracing_torch.ops import cuda
+from mafrixraytracing_torch.utils import trace
 
 # 128-ray tiles: the kernels' block, and the unit whose rays share one
 # cluster list. The integrator's ray order (tiled_pixel_order, _spp_group)
@@ -931,6 +932,13 @@ def _searches(walk):
     return closest_hit, any_hit
 
 
+def _count_lanes(o: V3) -> None:
+    """Add the query's lanes, padded to the ray tile as `_prep` pads them,
+    to the `search_lanes` counter."""
+    trace.count("search_lanes", -(-o.x.shape[0] // TILE) * TILE)
+
+
+@trace.spanned("search")
 @torch.no_grad()
 def find_closest_soa(scene, o: V3, d: V3, t_min: float, t_max, times=None):
     """Closest hit per ray: clustered triangles through kernel A (kernel D
@@ -939,6 +947,7 @@ def find_closest_soa(scene, o: V3, d: V3, t_min: float, t_max, times=None):
     velocities (motion blur; the clustered triangles are static).
     Returns (t (B,) f32, BIG on a miss; idx (B,) int64: triangle [0, T),
     sphere T + s, -1 on a miss). Not differentiable by design."""
+    _count_lanes(o)
     walk, B, t_max_arr, mega_t, mega_idx = _prep(scene, o, d, t_min, t_max,
                                                  anyhit=False, fused=FUSED_CULL)
     tt, ti = _searches(walk)[0](*walk, t_min)
@@ -958,12 +967,14 @@ def find_closest_soa(scene, o: V3, d: V3, t_min: float, t_max, times=None):
     return tt, torch.where(tt < BIG, ti, -1)
 
 
+@trace.spanned("search")
 @torch.no_grad()
 def occluded_soa(scene, o: V3, d: V3, t_min: float, t_max, times=None):
     """Any hit in (t_min, t_max) per ray (shadow queries): clustered
     triangles through kernel B (kernel E on the two-level path; G or I with
     `FUSED_CULL`), mega triangles and spheres densely; `times` as in
     `find_closest_soa`."""
+    _count_lanes(o)
     walk, B, t_max_arr, mega_t, mega_idx = _prep(scene, o, d, t_min, t_max,
                                                  anyhit=True, fused=FUSED_CULL)
     occ = _searches(walk)[1](*walk, t_min)[:B] | (mega_idx >= 0)

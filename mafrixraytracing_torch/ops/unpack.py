@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from mafrixraytracing_torch.ops import cuda
+from mafrixraytracing_torch.utils import trace
 
 COLS = 36
 
@@ -209,7 +210,9 @@ def scatter_kernel(ct: torch.Tensor, idx: torch.Tensor,
 
 def scatter_rows(ct: torch.Tensor, idx: torch.Tensor, num_rows: int) -> torch.Tensor:
     """The wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. No fallback between the two."""
+    CPU tensors. No fallback between the two. Counts the rows summed in
+    `utils.trace`'s `scatter_rows`."""
+    trace.count("scatter_rows", idx.shape[0])
     if ct.is_cuda:
         return scatter_kernel(ct, idx.to(torch.int64).contiguous(), num_rows)
     return scatter_rows_reference(ct, idx, num_rows)

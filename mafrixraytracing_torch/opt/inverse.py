@@ -44,6 +44,7 @@ from mafrixraytracing_torch.integrator.path import (
 )
 from mafrixraytracing_torch.ops.unpack import gather_rows, scatter_rows
 from mafrixraytracing_torch.utils import checkpoint as ckpt
+from mafrixraytracing_torch.utils import trace
 
 # Scene leaves that move geometry: optimizing any of these invalidates the
 # cluster AABBs the cull relies on, so `apply_params` rebuilds them (a stale
@@ -191,14 +192,15 @@ def make_train_step(optimizer: torch.optim.Optimizer, spp: int,
     def train_step(params, scene, camera, target, key):
         loss, grads = loss_and_grads(params, scene, camera, target, key, spp,
                                      config, overlap_microbatches, mesh)
-        if smooth_geometry and "mesh_vertices" in grads:
-            grads["mesh_vertices"] = smooth_vertex_grads(
-                scene, grads["mesh_vertices"], iters=smooth_geometry)
-        gnorm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
-        for name, p in params.items():
-            p.grad = grads[name]
-        optimizer.step()
-        optimizer.zero_grad(set_to_none=True)
+        with trace.span("optimizer"):
+            if smooth_geometry and "mesh_vertices" in grads:
+                grads["mesh_vertices"] = smooth_vertex_grads(
+                    scene, grads["mesh_vertices"], iters=smooth_geometry)
+            gnorm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+            for name, p in params.items():
+                p.grad = grads[name]
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
         return loss, gnorm
 
     return train_step
@@ -241,7 +243,9 @@ def fit(
       the same result. Only rank 0 prints and writes the checkpoint; every
       rank reads it.
     - `log_every=N` prints a line every N steps: step, loss, global gradient
-      norm, steps/s, and rays/s (pixels * spp * ~2 queries per bounce).
+      norm, steps/s, and the search lanes a second since the last line (the
+      lanes of every closest-hit and shadow query this rank traced, counted
+      by `utils.trace`).
     - `smooth_geometry=N` Laplacian-smooths the `mesh_vertices` gradient with
       N Jacobi iterations before the optimizer (`smooth_vertex_grads`):
       essential for stable vertex fits at practical sample counts.
@@ -257,7 +261,6 @@ def fit(
     t_setup = time.perf_counter()
     if key is None:
         key = rng.root_key(0, scene.tri_v0.device)
-    h, w = target.shape[:2]
     params = _leaves(extract_params(scene, param_names))
     optimizer = _adam(params, lr)
     step_fn = make_train_step(optimizer, spp, config,
@@ -273,6 +276,7 @@ def fit(
 
     losses = []
     t_prev = time.perf_counter()
+    lanes_prev = trace.COUNTERS["search_lanes"]
     if timings is not None:
         timings["setup_s"] = t_prev - t_setup
     for i in range(start, steps):
@@ -280,13 +284,13 @@ def fit(
         loss, gnorm = step_fn(params, scene, camera, target, sub)
         losses.append(float(loss))
         if lead and log_every and ((i - start) % log_every == 0 or i == steps - 1):
-            now = time.perf_counter()
-            dt = max(now - t_prev, 1e-9) / max(log_every, 1)
-            t_prev = now
-            rays = w * h * spp * 2 * config.max_depth / dt
+            now, lanes = time.perf_counter(), trace.COUNTERS["search_lanes"]
+            el = max(now - t_prev, 1e-9)
+            dt = el / max(log_every, 1)
             print(f"[fit] step {i:4d}  loss {losses[-1]:.5f}  "
                   f"|grad| {float(gnorm):.4g}  {1.0 / dt:6.2f} steps/s  "
-                  f"~{rays / 1e6:.2f}M rays/s")
+                  f"{(lanes - lanes_prev) / el / 1e6:.2f}M lanes/s")
+            t_prev, lanes_prev = now, lanes
         if checkpoint_path is not None and (
                 (i + 1) % checkpoint_every == 0 or i + 1 == steps):
             if lead:

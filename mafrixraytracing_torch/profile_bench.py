@@ -14,7 +14,10 @@ device time, the scatter-add's (J's) wrapper launches and the device
 time of its two passes (its sort is not told apart from the others'), and
 the device time and launches of each search kernel that ran (A, B, D-I, K,
 by the kernel's function name). With
-TRACE_DIR, it also writes Chrome traces there. `--fused` (or BENCH_FUSED=1)
+TRACE_DIR, it also writes Chrome traces there; the port's spans
+(`utils.trace`) are on in the profiled region, so the traces show each
+launch under its layer (`mfx.render`, `mfx.bounce`, `mfx.rng`,
+`mfx.search`, `mfx.refresh`, `mfx.optimizer`). `--fused` (or BENCH_FUSED=1)
 profiles the fused-cull searches (`ops.intersect.FUSED_CULL`) in place of the
 list walks fed by the cull kernel K.
 """
@@ -34,6 +37,7 @@ from mafrixraytracing_torch.integrator import path as P
 from mafrixraytracing_torch.ops import cuda
 from mafrixraytracing_torch.scene.builtin import cornell_box
 from mafrixraytracing_torch.scene.compiler import compile_scene
+from mafrixraytracing_torch.utils import trace
 
 W = H = 256
 SPP = 64
@@ -52,8 +56,10 @@ def _device_us(evt) -> float:
 
 
 def _report(label: str, prof, wall_s: float, top: int = 15) -> None:
+    # the spans' own marks on the device's timeline are no work of the card
     kernels = [e for e in prof.events()
-               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(trace.PREFIX)]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     print(f"{label}: wall {wall_s:.4f} s, device busy {busy_us / 1e6:.4f} s, "
           f"idle share {1 - busy_us / 1e6 / wall_s:.3f}, "
@@ -109,10 +115,14 @@ def profile_scene(spec=None, trace_dir=None, fit=False) -> None:
     for label, fn in runs:
         cuda.reset_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            trace.enable()
+            try:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                trace.disable()
         _report(label, prof, wall)
         if trace_dir:
             os.makedirs(trace_dir, exist_ok=True)
