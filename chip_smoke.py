@@ -196,6 +196,25 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    printed beside `GRAPH_BYTES`; none may pass `GRAPH_BYTES / FREE_SHARE`,
    past which a graph that `remat` unset leaves whole could outgrow the
    card's free memory.
+15. The threefry kernels (`csrc/rng.cu`; `phase_rng`): every public draw of `core/rng.py` on card keys
+   `torch.equal` to its plain version (`_fold_in`, `_uniforms`) on the same
+   card tensors, one launch a draw (`LAUNCHES`), in every broadcast form of
+   the port's callers, three that take a copy first and a slice of keys, at
+   1 to 2^21 keys (batches off the block size too), with keys whose words
+   have the high bit set, scalar, tensor (paired with the keys, and against
+   one key) and range data, data of 2^31 and above and negative, draw sites
+   0, 1, 2, 10, 11, 40-47, 97, 99, 1000-1002 at n = 1, 2, 3. Then each draw
+   of the main path at its wavefront sizes (360,000 and 2^19 keys, rotating
+   through key buffers of twice the L2): one launch a call (`LAUNCHES`), the
+   kernel's time by events and on the device (`queued_ms`: CUDA events
+   around calls queued behind a spin of the card; the profiler loses device
+   records in this long a process, PERF.md §7), its bound (the keys read
+   over 3.35 TB/s, or the SASS's 68 instructions a hash over the dispatch
+   slots of 132 SMs x 4 schedulers at 1.98 GHz; a kernel faster than its
+   bound fails), and the plain version's times. One JSON line
+   `{"rng_kernels": ...}`. The forward and fwd+bwd phases (3-6) also
+   require both kernels launched, and the kernels line carries them with
+   the launches of phase 3's Cornell frame.
 
 Then, on lines of their own: the kernels' JSON record, the nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA
@@ -1886,13 +1905,21 @@ def phase_textured(torch, untextured):
     check(diff > 1e-3, "the texture did not change the picture")
 
 
-def phase_fwd_bwd(torch, spec=None, scene_name=None, iters=3):
+def phase_fwd_bwd(torch, spec=None, scene_name=None, iters=3, launched=()):
+    """`bench.run`'s forward + backward; `launched` names the kernels it must
+    go through (their launches are read over the whole run)."""
     from mafrixraytracing_torch import bench
+    from mafrixraytracing_torch.ops import cuda
 
     torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
     record, grads = bench.run(WIDTH, HEIGHT, SPP, DEPTH, iters=iters, spec=spec,
                               scene_name=scene_name)
-    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"launches over {iters + 1} iterations and calibration {launches}")
+    for k in launched:
+        check(launches.get(k, 0) > 0, f"kernel {k} was not launched by the fwd+bwd")
     names = ("mat_albedo", "light_radiance", "tri_v0")
     for n, g in zip(names, grads):
         check(g is not None and bool(torch.isfinite(g).all()),
@@ -2069,6 +2096,7 @@ def phase_fit(torch, dev):
     return launches
 
 FLAT, TWO_LEVEL = ("closest", "anyhit"), ("closest_super", "anyhit_super")
+RNG = ("rng_fold", "rng_uniform")
 FUSED_FLAT = ("fused_closest", "fused_anyhit")
 FUSED_TWO_LEVEL = ("fused_closest_super", "fused_anyhit_super")
 
@@ -3213,6 +3241,184 @@ def graph_peaks(torch):
     return out
 
 
+def queued_ms(torch, fn, reps: int = 20) -> float:
+    """Device ms a call of fn() takes on the card: CUDA events around `reps`
+    calls queued behind a spin of the card (`torch.cuda._sleep`), so the
+    host's cost of launching them does not show; the time is the kernels'
+    own and the card's gaps between back-to-back launches. Fails if the host
+    did not queue every call before the spin ended."""
+    fn()
+    torch.cuda.synchronize()
+    spun, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    spun.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    check(host_ms < spun.elapsed_time(start),
+          f"the host took {host_ms:.1f} ms to queue {reps} calls, longer than the spin")
+    return start.elapsed_time(end) / reps
+
+
+SPIN_CYCLES = 400_000_000   # ~0.2 s of the card at 1.98 GHz
+DISPATCH_SLOTS = 132 * 4 * 32 * 1.98e9   # thread instructions a second: a warp instruction a
+                                      # clock from each of 4 schedulers of 132 SMs at boost
+INSTR_PER_HASH = 68   # SASS of a threefry2x32 hash (`cuobjdump -sass` of csrc/rng.cu under
+                      # NVCC_FLAGS): 20 rounds of an add, an SHF and a LOP3, 8 for the keys
+L2_BYTES = 50 * 2**20
+RNG_SIZES = (1, 2, 255, 256, 257, 1000, 65_537, 360_000, 1 << 19, (1 << 19) + 77, 1 << 21)
+RNG_SCALARS = (0, 3, 97, 2**31, 2**31 + 5, 2**32 - 1, 2**32, -1, -2**31, 2**40 + 5)
+RNG_SITES = (0, 1, 2, 10, 11, *range(40, 48), 97, 99, 1000, 1001, 1002)
+
+
+def phase_rng(torch, dev):
+    """The threefry kernels against the RNG's plain version (docstring,
+    phase 15). Returns the records of the kernels line: `bounce_key` for
+    rng_fold, `uniforms` of two for rng_uniform, both at 2^19 keys."""
+    import itertools
+
+    from mafrixraytracing_torch.core import rng
+    from mafrixraytracing_torch.ops import cuda
+    from mafrixraytracing_torch.utils import trace
+
+    gen = torch.Generator().manual_seed(20)
+
+    def keys_of(n):
+        k = torch.randint(0, 2**32, (max(n, 4), 2), generator=gen, dtype=torch.int64)
+        k[:4] = torch.tensor([[2**32 - 1, 2**32 - 1], [2**31, 0], [0, 2**31 + 1], [0, 0]])
+        return k[:n].to(dev)
+
+    cuda.reset_launches()
+    trace.reset_counters()
+    draws = cases = 0
+    t0 = time.perf_counter()
+
+    def held(label, got, want):
+        nonlocal draws, cases
+        draws += 1
+        cases += 1
+        check(got.shape == want.shape and got.dtype == want.dtype and torch.equal(got, want),
+              f"rng kernel differs from the plain version: {label}")
+        check(cuda.LAUNCHES["rng_fold"] + cuda.LAUNCHES["rng_uniform"] == draws,
+              f"rng: {label} did not take exactly one launch")
+
+    for n in RNG_SIZES:
+        keys = keys_of(n)
+        root = keys[0]
+        data = torch.randint(-2**40, 2**40, (n,), generator=gen, dtype=torch.int64).to(dev)
+        data[: min(n, 4)] = torch.tensor([2**31, 2**32 - 1, -1, -2**31])[: min(n, 4)].to(dev)
+        for x in RNG_SCALARS:
+            held(f"bounce_key n={n} x={x}", rng.bounce_key(keys, x), rng._fold_in(keys, x))
+        held(f"split_dim n={n}", rng.split_dim(keys, 45), rng._fold_in(keys, 45))
+        held(f"fold_in paired n={n}", rng.fold_in(keys, data), rng._fold_in(keys, data))
+        held(f"fold_in one key n={n}", rng.fold_in(root, data), rng._fold_in(root, data))
+        ar = torch.arange(n, device=dev)
+        held(f"pixel_keys n={n}", rng.pixel_keys(root, n), rng._fold_in(root, ar))
+        held(f"split n={n}", rng.split(root, n), rng._fold_in(root, ar))
+        for G in (1, 4, 16):
+            if n * G > (1 << 21) * 4:
+                continue
+            for off in (0, 2**31 - 2):
+                sidx = off + torch.arange(G, device=dev)
+                held(f"sample_key outer n={n} G={G} off={off}",
+                     rng.sample_key(keys[:, None, :], sidx[None, :]),
+                     rng._fold_in(keys[:, None, :], sidx[None, :]))
+        for dim in RNG_SITES:
+            for shape in ((), (2,), (3,)):
+                held(f"uniforms n={n} dim={dim} shape={shape}", rng.uniforms(keys, dim, shape),
+                     rng._uniforms(keys, dim, shape))
+        for i in range(8):   # the lights' draws: a key a light, then two uniforms
+            lk = rng.split_dim(keys, 40 + i)
+            draws += 1
+            held(f"light {i} n={n}", rng.uniforms(lk, 0, (2,)),
+                 rng._uniforms(rng._fold_in(keys, 40 + i), 0, (2,)))
+    # forms that take a copy first, and a slice of keys at an odd row
+    keys = keys_of(1001)
+    odd = [("strided keys", lambda r: r.bounce_key(keys[::3], 4),
+            lambda: rng._fold_in(keys[::3], 4)),
+           ("int32 data", lambda r: r.fold_in(keys, torch.arange(1001, device=dev,
+                                                                  dtype=torch.int32)),
+            lambda: rng._fold_in(keys, torch.arange(1001, device=dev))),
+           ("keys over data, tiled", lambda r: r.fold_in(keys[:999].reshape(333, 3, 2),
+                                                         torch.tensor([4, 5, 6], device=dev)),
+            lambda: rng._fold_in(keys[:999].reshape(333, 3, 2),
+                                 torch.tensor([4, 5, 6], device=dev))),
+           ("slice at row 7", lambda r: r.uniforms(keys[7:1000], 1001, (2,)),
+            lambda: rng._uniforms(keys[7:1000], 1001, (2,)))]
+    for label, got, want in odd:
+        held(label, got(rng), want())
+    check(trace.COUNTERS["rng_calls"] == draws,
+          "rng: the counter rng_calls disagrees with the draws made")
+    print(f"  {cases} cases at {len(RNG_SIZES)} sizes (1 to {max(RNG_SIZES):,} keys): "
+          f"every draw torch.equal to the plain version, one launch each "
+          f"({cuda.LAUNCHES['rng_fold']} fold, {cuda.LAUNCHES['rng_uniform']} uniform), "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # each draw of the main path at its wavefront sizes, kernel against plain,
+    # timed on the card by `queued_ms`: the profiler loses device records in
+    # a long process (PERF.md §7). The keys rotate through buffers of twice
+    # the L2's 50 MB, so each call reads them from HBM; the bound by bytes
+    # counts those reads alone (the writes land in the L2), the bound by
+    # dispatch slots INSTR_PER_HASH a hash.
+    records, main = [], {}
+    for B in (360_000, 1 << 19):
+        nxt = itertools.cycle([keys_of(B) for _ in range(1 + 2 * L2_BYTES // (16 * B))]).__next__
+        root = keys_of(1)[0]
+        G = 16
+        sidx = 32 + torch.arange(G, device=dev)
+        # (label, kernel, bytes read, hashes, kernel, plain)
+        draws_b = [
+            ("bounce_key", "rng_fold", 16 * B, B,
+             lambda: rng.bounce_key(nxt(), 3), lambda: rng._fold_in(nxt(), 3)),
+            ("pixel_keys", "rng_fold", 16, B,
+             lambda: rng.pixel_keys(root, B),
+             lambda: rng._fold_in(root, torch.arange(B, device=dev))),
+            ("sample_key outer", "rng_fold", 16 * (B // G) + 8 * G, B,
+             lambda: rng.sample_key(nxt()[: B // G, None, :], sidx[None, :]),
+             lambda: rng._fold_in(nxt()[: B // G, None, :], sidx[None, :])),
+            *[(f"uniforms n={n}", "rng_uniform", 16 * B, B * (1 + n),
+               (lambda sh=sh: rng.uniforms(nxt(), 1000, sh)),
+               (lambda sh=sh: rng._uniforms(nxt(), 1000, sh)))
+              for n, sh in ((1, ()), (2, (2,)), (3, (3,)))]]
+        for label, name, nbytes_, hashes, kern, plain in draws_b:
+            cuda.reset_launches()
+            kern()
+            launches = cuda.LAUNCHES["rng_fold"] + cuda.LAUNCHES["rng_uniform"]
+            check(launches == 1 and cuda.LAUNCHES[name] == 1,
+                  f"rng {label} B={B}: {launches} launches a call")
+            ms = time_ms(kern, reps=50)
+            dev_ms = queued_ms(torch, kern, reps=20)
+            p_ms = time_ms(plain, reps=5)
+            # two calls: the host stalls once some thousand launches wait behind
+            # the spin, and a plain draw is up to 349
+            p_dev_ms = queued_ms(torch, plain, reps=2)
+            by_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
+            by_dispatch = hashes * INSTR_PER_HASH / DISPATCH_SLOTS * 1e3
+            bound = max(by_bytes, by_dispatch)
+            rec = dict(draw=label, kernel=name, keys=B, kernel_ms=round(ms, 5),
+                       kernel_device_ms=round(dev_ms, 5), launches=launches,
+                       plain_ms=round(p_ms, 4), plain_device_ms=round(p_dev_ms, 4),
+                       bytes_read=nbytes_, hashes=hashes, bound_bytes_ms=round(by_bytes, 5),
+                       bound_dispatch_ms=round(by_dispatch, 5), share_of_bound=round(bound / dev_ms, 3))
+            records.append(rec)
+            print(f"  {label} B={B:,}: kernel {ms:.4f} ms by events, {dev_ms:.4f} ms on the "
+                  f"device (queued), {launches} launch; bound {by_bytes:.4f} ms by bytes read, "
+                  f"{by_dispatch:.4f} by dispatch slots ({rec['share_of_bound']} of the larger); "
+                  f"plain {p_ms:.3f} ms by events, {p_dev_ms:.3f} ms on the device (queued)")
+            check(bound <= dev_ms, f"rng {label} B={B}: ran faster than its bound")
+            if B == 1 << 19 and label in ("bounce_key", "uniforms n=2"):
+                main[name] = dict(max_abs_err=0.0, ms=dev_ms, plain_ms=p_dev_ms,
+                                  library_ms=None, bound_ms=bound,
+                                  bound_by="bytes" if by_bytes >= by_dispatch else "dispatch slots",
+                                  draw=label, keys=B, events_ms=ms, plain_events_ms=p_ms)
+    print(json.dumps({"rng_kernels": records}))
+    return main
+
+
 def fwd_bwd_in_turns(parent: str) -> int:
     """`python -m mafrixraytracing_torch.bench` on the mesh of phase 2
     (BENCH_OBJ, 256x256 x 64 spp fwd+bwd, the benchmark's compaction) from
@@ -3256,7 +3462,6 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--turns"]:
         return fwd_bwd_in_turns(sys.argv[2])
-
     print("[1] device and build")
     info = bench.device_info()
     check(info["nvidia_smi"], "nvidia-smi did not report the card")
@@ -3275,15 +3480,15 @@ def main() -> int:
     flat, two_level = FLAT, TWO_LEVEL
     fused = FUSED_FLAT + FUSED_TWO_LEVEL      # the fused route's kernels
     launches, _, cornell_img = phase_forward(torch, dev, cornell_box, "cornell",
-                                             launched=flat + ("unpack", "cull"),
+                                             launched=flat + ("unpack", "cull") + RNG,
                                              idle=two_level + fused)
 
     print("[4] forward + backward, Cornell")
-    phase_fwd_bwd(torch)
+    phase_fwd_bwd(torch, launched=flat + RNG)
 
     print("[5] forward, mesh of 36,996 faces")
     mesh_launches, small, mesh_img = phase_forward(
-        torch, dev, mesh_spec, "mesh36996", launched=two_level + ("unpack", "cull"),
+        torch, dev, mesh_spec, "mesh36996", launched=two_level + ("unpack", "cull") + RNG,
         idle=flat + fused)
     phase_textured(torch, small)
     # each kernel's count is that of the path that runs it (the gather and
@@ -3291,7 +3496,8 @@ def main() -> int:
     launches.update({k: mesh_launches[k] for k in two_level + ("unpack", "cull")})
 
     print("[6] forward + backward, mesh of 36,996 faces")
-    phase_fwd_bwd(torch, mesh_spec(WIDTH, HEIGHT), "mesh36996", iters=2)
+    phase_fwd_bwd(torch, mesh_spec(WIDTH, HEIGHT), "mesh36996", iters=2,
+                  launched=two_level + RNG)
 
     print("[7] fit, mesh of 36,996 faces (and a short Cornell fit)")
     launches["scatter"] = phase_fit(torch, dev)["scatter"]
@@ -3318,6 +3524,9 @@ def main() -> int:
     print("[14] memory-bounded gradients (remat) on the mesh; its estimate on three scenes")
     phase_remat(torch)
 
+    print("[15] the threefry kernels")
+    records.update(phase_rng(torch, dev))
+
     pallas = "mafrixraytracing_tpu/ops/intersect_pallas.py"
     fused_cu = "mafrixraytracing_torch/csrc/intersect_fused.cu"
     sources = {"closest": ("mafrixraytracing_torch/csrc/intersect.cu", pallas + ":356"),
@@ -3339,7 +3548,11 @@ def main() -> int:
                "closest_dbg": ("mafrixraytracing_torch/csrc/intersect_stats.cu",
                                "experiments/exp6.py:48"),
                "closest_full": ("mafrixraytracing_torch/csrc/intersect_stats.cu",
-                                "experiments/exp6.py:104")}
+                                "experiments/exp6.py:104"),
+               "rng_fold": ("mafrixraytracing_torch/csrc/rng.cu",
+                            "mafrixraytracing_torch/core/rng.py:_fold_in"),
+               "rng_uniform": ("mafrixraytracing_torch/csrc/rng.cu",
+                               "mafrixraytracing_torch/core/rng.py:_uniforms")}
     kernels = [dict(name=k, route="cuda", source=sources[k][0],
                     replaces=sources[k][1], launches=launches[k], **records[k])
                for k in sources]

@@ -37,7 +37,8 @@ LAUNCHES: dict[str, int] = {"closest": 0, "anyhit": 0, "unpack": 0,
                             "closest_super": 0, "anyhit_super": 0, "scatter": 0,
                             "fused_closest": 0, "fused_anyhit": 0,
                             "fused_closest_super": 0, "fused_anyhit_super": 0,
-                            "cull": 0, "closest_dbg": 0, "closest_full": 0}
+                            "cull": 0, "closest_dbg": 0, "closest_full": 0,
+                            "rng_fold": 0, "rng_uniform": 0}
 
 _lib = None
 
@@ -121,12 +122,15 @@ def lib() -> ctypes.CDLL:
         handle.mfx_cull.argtypes = [P, P, P, I, I, P, P, P, P, P]
         handle.mfx_closest_dbg.argtypes = [P, P, P, P, P, P, P, I, I, F, F, F, P, P, P, P]
         handle.mfx_closest_full.argtypes = [P, P, P, P, P, P, P, I, I, F, F, F, P, P, P]
+        handle.mfx_rng_fold.argtypes = [P, L, P, L, L, L, L, L, P, P]
+        handle.mfx_rng_uniform.argtypes = [P, L, L, L, P, P]
         for fn in (handle.mfx_closest, handle.mfx_anyhit, handle.mfx_unpack,
                    handle.mfx_closest_super, handle.mfx_anyhit_super,
                    handle.mfx_scatter, handle.mfx_fused_closest,
                    handle.mfx_fused_anyhit, handle.mfx_fused_closest_super,
                    handle.mfx_fused_anyhit_super, handle.mfx_cull,
-                   handle.mfx_closest_dbg, handle.mfx_closest_full):
+                   handle.mfx_closest_dbg, handle.mfx_closest_full,
+                   handle.mfx_rng_fold, handle.mfx_rng_uniform):
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib

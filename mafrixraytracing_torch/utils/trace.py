@@ -25,7 +25,9 @@ shapes (no `.item()`, no tensor op), always on like `ops.cuda.LAUNCHES`:
 - `search_lanes`: the lanes, padded to the ray tile, that enter each
   closest-hit and any-hit search;
 - `scatter_rows`: the gathered rows whose cotangents `ops.unpack.scatter_rows`
-  sums.
+  sums;
+- `rng_calls`: the public draws of `core/rng.py` (`LAUNCHES["rng_fold"]` and
+  `LAUNCHES["rng_uniform"]` count those that took the threefry kernels).
 
 A reader takes the counters' change over a stretch of work.
 """
@@ -40,7 +42,7 @@ import torch
 PREFIX = "mfx."
 LAYERS = ("render", "bounce", "rng", "search", "refresh", "optimizer", "film")
 
-COUNTERS: dict[str, int] = {"search_lanes": 0, "scatter_rows": 0}
+COUNTERS: dict[str, int] = {"search_lanes": 0, "scatter_rows": 0, "rng_calls": 0}
 
 _OFF = contextlib.nullcontext()
 _on = False

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import test_torch_kernels as tk
+from mafrixraytracing_torch.core import rng
 from mafrixraytracing_torch.core.device import resolve
 from mafrixraytracing_torch.ops import cuda
 from mafrixraytracing_torch.ops import intersect as oi
@@ -124,8 +125,8 @@ def test_device_check_refuses_operands_on_two_devices(fake_card):
 
 def test_every_wrapper_launches_through_the_helper():
     """No wrapper calls the library itself: each kernel of LAUNCHES has one
-    `cuda.launch` call in ops/intersect.py or ops/unpack.py."""
-    src = inspect.getsource(oi) + inspect.getsource(ou)
+    `cuda.launch` call in ops/intersect.py, ops/unpack.py or core/rng.py."""
+    src = inspect.getsource(oi) + inspect.getsource(ou) + inspect.getsource(rng)
     assert "lib()" not in src and "stream_of" not in src
     names = sorted(n for n in cuda.LAUNCHES if f'cuda.launch("{n}"' in src)
     assert names == sorted(cuda.LAUNCHES)

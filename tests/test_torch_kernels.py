@@ -147,12 +147,16 @@ def test_wrappers_take_plain_versions_on_cpu():
     oi.cull_lists(ts.cluster_min, ts.cluster_max, walk[-1])
     oi.closest_dbg_hit(*walk, T_MIN)
     oi.closest_full_hit(*walk, T_MIN)
+    keys = rng.pixel_keys(rng.root_key(3, "cpu"), 5)
+    rng.uniforms(rng.sample_key(keys[:, None, :], torch.arange(2)[None, :]).reshape(10, 2),
+                 1000, (2,))
     assert cuda.LAUNCHES == {"closest": 0, "anyhit": 0, "unpack": 0,
                              "closest_super": 0, "anyhit_super": 0,
                              "scatter": 0, "fused_closest": 0,
                              "fused_anyhit": 0, "fused_closest_super": 0,
                              "fused_anyhit_super": 0, "cull": 0,
-                             "closest_dbg": 0, "closest_full": 0}
+                             "closest_dbg": 0, "closest_full": 0,
+                             "rng_fold": 0, "rng_uniform": 0}
 
 
 def test_kernel_entry_points_refuse_cpu_tensors():
@@ -217,7 +221,7 @@ def test_library_name_tracks_sources():
     assert cuda.library_path() == cuda.library_path()
     assert {p.name for p in cuda._sources()} == {
         "cull.cu", "intersect.cu", "intersect_fused.cu", "intersect_stats.cu",
-        "intersect_super.cu", "scatter.cu", "unpack.cu"}
+        "intersect_super.cu", "rng.cu", "scatter.cu", "unpack.cu"}
 
 
 # --- on the card -----------------------------------------------------------
@@ -1464,3 +1468,42 @@ def test_render_on_card_matches_cpu(card):
     assert close.mean() >= 0.995, close.mean()
     assert abs(imgs[1].mean() - imgs[0].mean()) <= 1e-4 * abs(imgs[0].mean())
 
+
+
+def rng_keys(n, device, seed=0):
+    """n keys of random uint32 words, the first with the high bits set."""
+    g = torch.Generator().manual_seed(seed)
+    k = torch.randint(0, 2**32, (max(n, 4), 2), generator=g, dtype=torch.int64)
+    k[:4] = torch.tensor([[2**32 - 1, 2**32 - 1], [2**31, 0], [0, 2**31 + 1], [0, 0]])
+    return k[:n].to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 257, 70_001])
+def test_rng_kernels_match_plain_version(card, n):
+    """Every public draw on a CUDA key is one kernel launch with the plain
+    version's bits, on the same card tensors."""
+    keys = rng_keys(n, card)
+    g = torch.Generator().manual_seed(n)
+    data = torch.randint(-2**40, 2**40, (n,), generator=g, dtype=torch.int64).to(card)
+    root = keys[0]
+    sidx = 7 + torch.arange(4, device=card)
+    cuda.reset_launches()
+    folds = [
+        (rng.bounce_key(keys, 3), rng._fold_in(keys, 3)),
+        (rng.split_dim(keys, 2**32 - 1), rng._fold_in(keys, 2**32 - 1)),
+        (rng.sample_key(keys, -5), rng._fold_in(keys, -5)),
+        (rng.fold_in(keys, data), rng._fold_in(keys, data)),
+        (rng.fold_in(root, data), rng._fold_in(root, data)),
+        (rng.pixel_keys(root, n), rng._fold_in(root, torch.arange(n, device=card))),
+        (rng.split(root, 3), rng._fold_in(root, torch.arange(3, device=card))),
+        (rng.sample_key(keys[:, None, :], sidx[None, :]),
+         rng._fold_in(keys[:, None, :], sidx[None, :])),
+    ]
+    draws = [(rng.uniforms(keys, dim, shape), rng._uniforms(keys, dim, shape))
+             for dim, shape in ((0, ()), (10, (2,)), (47, (3,)), (1002, (1,)))]
+    assert cuda.LAUNCHES["rng_fold"] == len(folds)
+    assert cuda.LAUNCHES["rng_uniform"] == len(draws)
+    for got, want in folds + draws:
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert torch.equal(got, want)
