@@ -64,7 +64,9 @@ def init(init_method: str | None = None, world_size: int | None = None,
 
 
 def shutdown() -> None:
-    """Leave the process group (a no-op when `init` set none up)."""
+    """Leave the process group (a no-op when `init` set none up). On NCCL the
+    teardown waits for every rank of the group: every rank calls it, and no
+    rank waits for another's process to end before calling it."""
     if dist.is_initialized():
         dist.destroy_process_group()
 

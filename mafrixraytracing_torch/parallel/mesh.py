@@ -12,6 +12,10 @@ its collectives raise.
 
 The scene is replicated: every rank compiles or loads the same scene, and
 only pixel ids and target pixels are sharded.
+
+Every collective runs inside the `collective` span (`utils/trace.py`) and
+is counted in `collective_calls`; `sum_start` adds the bytes it all-reduces
+to `allreduce_bytes`. A world of one without a group counts nothing.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
+
+from mafrixraytracing_torch.utils import trace
 
 RAY_AXIS = "rays"
 
@@ -53,9 +59,11 @@ class RayMesh:
         if self.world == 1 and self.group is None:
             return x
         self._need_group()
-        parts = [torch.empty_like(x) for _ in range(self.world)]
-        dist.all_gather(parts, x.contiguous(), group=self.group)
-        return torch.cat(parts)
+        trace.count("collective_calls", 1)
+        with trace.span("collective"):
+            parts = [torch.empty_like(x) for _ in range(self.world)]
+            dist.all_gather(parts, x.contiguous(), group=self.group)
+            return torch.cat(parts)
 
     def sum_start(self, tensors) -> list:
         """Start an in-place sum over the ranks of every tensor; returns the
@@ -66,13 +74,17 @@ class RayMesh:
         self._need_group()
         if not all(t.is_contiguous() for t in tensors):
             raise ValueError("an in-place sum over the ranks needs contiguous tensors")
-        return [dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group,
-                                async_op=True) for t in tensors]
+        trace.count("collective_calls", len(tensors))
+        trace.count("allreduce_bytes", sum(t.numel() * t.element_size() for t in tensors))
+        with trace.span("collective"):
+            return [dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group,
+                                    async_op=True) for t in tensors]
 
     @staticmethod
     def finish(handles) -> None:
-        for h in handles:
-            h.wait()
+        with trace.span("collective"):
+            for h in handles:
+                h.wait()
 
     def all_mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of `x` over the ranks (a new tensor)."""
@@ -81,8 +93,17 @@ class RayMesh:
         return y / self.world
 
     def barrier(self) -> None:
-        if self.group is not None:
-            dist.barrier(group=self.group)
+        """Wait for every rank. On NCCL the barrier runs on this process's
+        card (the current device, as `launch.init` sets it), named, not left
+        for NCCL to guess from the rank."""
+        if self.group is None:
+            return
+        trace.count("collective_calls", 1)
+        with trace.span("collective"):
+            if dist.get_backend(self.group) == dist.Backend.NCCL:
+                dist.barrier(group=self.group, device_ids=[torch.cuda.current_device()])
+            else:
+                dist.barrier(group=self.group)
 
 
 def make_mesh(world: int | None = None, rank: int | None = None,

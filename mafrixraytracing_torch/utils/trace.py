@@ -18,6 +18,7 @@ helps explain is the one a run without it would have.
 | `refresh` | `accel/clusters.py::refresh_clusters` |
 | `optimizer` | the tail of `opt/inverse.py::make_train_step`'s step |
 | `film` | `film/film.py::FilmState.add_frame`, `to_bytes` |
+| `collective` | `parallel/mesh.py::RayMesh.sum_start`, `finish`, `all_gather`, `barrier` |
 
 `COUNTERS` holds Python ints added at a layer boundary from tensors'
 shapes (no `.item()`, no tensor op), always on like `ops.cuda.LAUNCHES`:
@@ -27,7 +28,11 @@ shapes (no `.item()`, no tensor op), always on like `ops.cuda.LAUNCHES`:
 - `scatter_rows`: the gathered rows whose cotangents `ops.unpack.scatter_rows`
   sums;
 - `rng_calls`: the public draws of `core/rng.py` (`LAUNCHES["rng_fold"]` and
-  `LAUNCHES["rng_uniform"]` count those that took the threefry kernels).
+  `LAUNCHES["rng_uniform"]` count those that took the threefry kernels);
+- `allreduce_bytes`: the bytes of the tensors entering an all-reduce of
+  `parallel/mesh.py::RayMesh.sum_start`;
+- `collective_calls`: the collectives a `RayMesh` issues (one a tensor of
+  `sum_start`, one an `all_gather`, one a `barrier`).
 
 A reader takes the counters' change over a stretch of work.
 """
@@ -40,9 +45,11 @@ import threading
 import torch
 
 PREFIX = "mfx."
-LAYERS = ("render", "bounce", "rng", "search", "refresh", "optimizer", "film")
+LAYERS = ("render", "bounce", "rng", "search", "refresh", "optimizer", "film",
+          "collective")
 
-COUNTERS: dict[str, int] = {"search_lanes": 0, "scatter_rows": 0, "rng_calls": 0}
+COUNTERS: dict[str, int] = {"search_lanes": 0, "scatter_rows": 0, "rng_calls": 0,
+                            "allreduce_bytes": 0, "collective_calls": 0}
 
 _OFF = contextlib.nullcontext()
 _on = False
