@@ -215,6 +215,21 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    `{"rng_kernels": ...}`. The forward and fwd+bwd phases (3-6) also
    require both kernels launched, and the kernels line carries them with
    the launches of phase 3's Cornell frame.
+16. The live preview's pass as a CUDA graph (`ops/graph.py`; `phase_graph`):
+   Cornell at the preview's 300x300, 1 spp a pass, each pass as the
+   benchmark's preview takes it (`render_sample_batch` under `no_grad`,
+   `add_frame`, `to_bytes()` copied to the host). Two calls first: the
+   first runs eager, the second captures (`graph_captures` 1). Then four
+   blocks of `GRAPH_PASSES` passes in turns, eager (`render_flat_pixels`,
+   the pass as it ran before graphs), replayed, replayed, eager, each
+   replayed block over the sample indices of its eager twin: every replayed
+   frame `torch.equal` to the eager one, every replayed pass a replay
+   (`graph_replays` one a pass, no capture), `LAUNCHES` and `COUNTERS` a
+   pass equal in both; each block's host ms a pass (median, p95), the
+   median host ms until the render call returns, and passes a second. Then the profiler over `GRAPH_PROFILED` eager and as many
+   replayed passes: kernels and device busy ms a pass, so the line says
+   whether the profiler reports a replayed graph's kernels. One JSON line
+   `{"graph_preview": ...}`.
 
 Then, on lines of their own: the kernels' JSON record, the nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Exits non-zero without a CUDA
@@ -291,6 +306,9 @@ FIT_SCALE = 8.0             # Adam moves every coordinate by about lr a step,
                             # walk of 18,768 vertices roughens the mesh
                             # faster than the albedo fit gains.
 SMALL = 64                  # side of the kernels-vs-plain comparison renders
+GRAPH_SIDE = 300            # the live preview's film (benchmark cornell.preview1)
+GRAPH_PASSES = 40           # passes a block of phase 16's turns
+GRAPH_PROFILED = 5          # passes a path under the profiler in phase 16
 MESH_FACES = 36996          # the face count of the reference's largest model
 UNRELATED = 65536 - 37      # rays of a batch of unrelated rays (around the
                             # mesh, through the soup): not a multiple of 128
@@ -3444,6 +3462,113 @@ def fwd_bwd_in_turns(parent: str) -> int:
     return 0
 
 
+def phase_graph(torch, dev):
+    """The live preview's pass replayed as one CUDA graph against the eager
+    pass (docstring, phase 16)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from mafrixraytracing_torch.core import rng
+    from mafrixraytracing_torch.film.film import FilmState
+    from mafrixraytracing_torch.integrator import path as P
+    from mafrixraytracing_torch.ops import cuda
+    from mafrixraytracing_torch.scene.builtin import cornell_box
+    from mafrixraytracing_torch.scene.compiler import compile_scene
+    from mafrixraytracing_torch.utils import trace
+
+    side, n = GRAPH_SIDE, GRAPH_PASSES
+    cs = compile_scene(cornell_box(side, side))
+    config = P.PathTracerConfig()
+    key = rng.root_key(22, dev)
+    ids = torch.arange(side * side, device=dev)
+
+    def eager(s):
+        return P.render_flat_pixels(cs.scene, cs.camera, ids, side, side, 1, key, config,
+                                    sample_offset=s)
+
+    def replayed(s):
+        return P.render_sample_batch(cs.scene, cs.camera, side, side, s, key, config)
+
+    def changes(l0, c0):
+        return ({k: v - l0[k] for k, v in cuda.LAUNCHES.items()},
+                {k: v - c0[k] for k, v in trace.COUNTERS.items()})
+
+    def block(fn, samples):
+        """Frames, host ms a pass and the counters' change over `samples`,
+        each pass as the benchmark's preview takes it."""
+        film = FilmState.create(side, side, device=dev)
+        l0, c0 = dict(cuda.LAUNCHES), dict(trace.COUNTERS)
+        frames, ms, call_ms = [], [], []
+        for s in samples:
+            t = time.perf_counter()
+            frame = fn(s)
+            call_ms.append((time.perf_counter() - t) * 1e3)
+            film = film.add_frame(frame.reshape(side, side, 3))
+            film.to_bytes().cpu()
+            ms.append((time.perf_counter() - t) * 1e3)
+            frames.append(frame)
+        return frames, (ms, call_ms), *changes(l0, c0)
+
+    def profiled(fn, samples):
+        """Kernels and device busy ms a pass under torch.profiler."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for s in samples:
+                fn(s)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset"))]
+        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        return len(kernels) / len(samples), busy / len(samples)
+
+    P._PASSES.entries.clear()
+    rec = {"side": side, "passes_a_block": n}
+    with torch.no_grad():
+        c0 = dict(trace.COUNTERS)
+        check(torch.equal(replayed(0), eager(0)), "the first preview pass is not the eager one")
+        check(torch.equal(replayed(1), eager(1)), "the captured preview pass is not the eager one")
+        first = changes(dict(cuda.LAUNCHES), c0)[1]
+        check(first["graph_captures"] == 1 and first["graph_replays"] == 0,
+              f"two preview calls did not capture once: {first}")
+        a, b = range(2, 2 + n), range(2 + n, 2 + 2 * n)
+        turns = [("eager_1", eager, a), ("replay_1", replayed, a),
+                 ("replay_2", replayed, b), ("eager_2", eager, b)]
+        out = [block(fn, samples) for _, fn, samples in turns]
+        for (label, _, _), (frames, (ms, call_ms), dl, dc) in zip(turns, out):
+            rec[label] = {
+                "ms_median": round(float(np.median(ms)), 3),
+                "call_ms_median": round(float(np.median(call_ms)), 3),
+                "ms_p95": round(float(np.percentile(ms, 95)), 3),
+                "passes_per_s": round(1e3 * len(ms) / sum(ms), 3)}
+        for e, r in ((0, 1), (3, 2)):
+            check(all(torch.equal(x, y) for x, y in zip(out[e][0], out[r][0])),
+                  f"a replayed preview pass differs from the eager one (block {r})")
+            check(out[e][2] == out[r][2], "LAUNCHES a block differ between eager and replay: "
+                  f"{out[e][2]} against {out[r][2]}")
+            ec = {k: v for k, v in out[e][3].items() if not k.startswith("graph_")}
+            rc = {k: v for k, v in out[r][3].items() if not k.startswith("graph_")}
+            check(ec == rc, f"COUNTERS a block differ between eager and replay: {ec} against {rc}")
+            check(out[r][3]["graph_replays"] == n and out[r][3]["graph_captures"] == 0,
+                  f"not every replayed pass replayed: {out[r][3]}")
+            check(out[e][3]["graph_replays"] == 0, "an eager pass replayed")
+        rec["graph_replays_a_pass"] = (out[1][3]["graph_replays"]
+                                       + out[2][3]["graph_replays"]) / (2 * n)
+        rec["graph_captures_in_turns"] = out[1][3]["graph_captures"] + out[2][3]["graph_captures"]
+        rec["launches_a_pass"] = sum(out[1][2].values()) / n
+        del out
+        samples = range(2 + 2 * n, 2 + 2 * n + GRAPH_PROFILED)
+        rec["profiled_eager"] = [round(v, 3) for v in profiled(eager, samples)]
+        rec["profiled_replay"] = [round(v, 3) for v in profiled(replayed, samples)]
+    P._PASSES.entries.clear()
+    print(f"  eager {rec['eager_1']['ms_median']} / {rec['eager_2']['ms_median']} ms a pass, "
+          f"replayed {rec['replay_1']['ms_median']} / {rec['replay_2']['ms_median']} ms "
+          f"(medians, in turns); profiler kernels / busy ms a pass: eager "
+          f"{rec['profiled_eager']}, replayed {rec['profiled_replay']}")
+    print(json.dumps({"graph_preview": rec}))
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3526,6 +3651,9 @@ def main() -> int:
 
     print("[15] the threefry kernels")
     records.update(phase_rng(torch, dev))
+
+    print("[16] the live preview's pass as a CUDA graph")
+    phase_graph(torch, dev)
 
     pallas = "mafrixraytracing_tpu/ops/intersect_pallas.py"
     fused_cu = "mafrixraytracing_torch/csrc/intersect_fused.cu"

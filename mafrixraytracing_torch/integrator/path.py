@@ -44,7 +44,8 @@ from mafrixraytracing_torch.materials.bsdf import (
     emitted_soa,
     sample_bsdf_soa,
 )
-from mafrixraytracing_torch.ops import dispatch, remat
+from mafrixraytracing_torch.ops import dispatch, graph, remat
+from mafrixraytracing_torch.ops import intersect as ops_isect
 from mafrixraytracing_torch.ops.intersect import TILE
 from mafrixraytracing_torch.utils.trace import spanned
 
@@ -566,23 +567,50 @@ def render_sample_batch(scene, camera, width: int, height: int, sample_idx: int,
                         key: torch.Tensor, config: PathTracerConfig) -> torch.Tensor:
     """One 1-spp pass over all pixels in row-major order (the progressive
     film's unit of work, reference `Film.GetFrame(integrator, 1)`,
-    `Scene/Scene.fs:332`) -> flat (width * height, 3)."""
-    ids = torch.arange(width * height, device=scene.tri_v0.device)
-    return render_flat_pixels(scene, camera, ids, width, height, 1, key, config,
-                              sample_offset=sample_idx)
+    `Scene/Scene.fs:332`) -> flat (width * height, 3). On a card without
+    grad the pass is replayed as one CUDA graph (`ops.graph`): run eager
+    the first time these tensors and settings are seen, captured the
+    second, replayed after that, bit-equal to the eager pass."""
+    dev = scene.tri_v0.device
+
+    def one_pass(key, sample_idx):
+        ids = torch.arange(width * height, device=dev)
+        return render_flat_pixels(scene, camera, ids, width, height, 1, key, config,
+                                  sample_offset=sample_idx)
+
+    if not scene.tri_v0.is_cuda or torch.is_grad_enabled():
+        return one_pass(key, sample_idx)
+    return _PASSES.run(pass_signature(scene, camera, width, height, key, config),
+                       one_pass, (key, sample_idx), dev)
+
+
+_PASSES = graph.PassGraphs()
+
+
+def pass_signature(scene, camera, width: int, height: int, key: torch.Tensor,
+                   config: PathTracerConfig) -> tuple:
+    """What a captured `render_sample_batch` pass bakes in: the scene's and
+    camera's tensors (addresses, shapes, strides) and flags, the film, the
+    configuration, the route switches of `ops.intersect`, and the root
+    key's shape and dtype, not its value; the sample index is not in it."""
+    return graph.signature(scene, camera, width, height, config, tuple(key.shape),
+                           key.dtype, torch.is_inference_mode_enabled(),
+                           ops_isect.FUSED_CULL, ops_isect.SUPER_MIN_C)
 
 
 @spanned("render")
 def render_flat_pixels(scene, camera, pixel_ids: torch.Tensor, width: int,
                        height: int, spp: int, key: torch.Tensor,
                        config: PathTracerConfig,
-                       sample_offset: int = 0) -> torch.Tensor:
+                       sample_offset: int | torch.Tensor = 0) -> torch.Tensor:
     """Trace `spp` jittered samples for a flat batch of pixel ids (row-major
     y * width + x) -> (B, 3), the mean over the samples (JAX
     `_render_flat_pixels`, `parallel/render.py:26-53`). Sample s of a pixel
     has the key `sample_key(fold_in(key, pixel_id), s + sample_offset)`,
     whatever the batch's order, so callers can split one sample set across
-    calls (`opt.inverse`'s microbatches) without reusing a stream. The JAX
+    calls (`opt.inverse`'s microbatches) without reusing a stream.
+    `sample_offset` is an int or a 0-d int64 tensor on the scene's device
+    (what a replayed graph reads), with the same sample indices. The JAX
     version scans the samples one wavefront each; here G samples of a pixel
     sit consecutively in one wavefront of ~config.wavefront rays, which
     changes only the order of the sum over samples."""

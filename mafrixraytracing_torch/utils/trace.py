@@ -32,7 +32,12 @@ shapes (no `.item()`, no tensor op), always on like `ops.cuda.LAUNCHES`:
 - `allreduce_bytes`: the bytes of the tensors entering an all-reduce of
   `parallel/mesh.py::RayMesh.sum_start`;
 - `collective_calls`: the collectives a `RayMesh` issues (one a tensor of
-  `sum_start`, one an `all_gather`, one a `barrier`).
+  `sum_start`, one an `all_gather`, one a `barrier`);
+- `graph_captures`: the passes `ops.graph.PassGraphs` captured as a CUDA
+  graph (the live preview's `render_sample_batch`);
+- `graph_replays`: the passes it answered by replaying a captured graph.
+  A replayed pass adds to every other counter, and to `ops.cuda.LAUNCHES`,
+  what its captured pass added, so a pass counts once whichever way it ran.
 
 A reader takes the counters' change over a stretch of work.
 """
@@ -49,7 +54,8 @@ LAYERS = ("render", "bounce", "rng", "search", "refresh", "optimizer", "film",
           "collective")
 
 COUNTERS: dict[str, int] = {"search_lanes": 0, "scatter_rows": 0, "rng_calls": 0,
-                            "allreduce_bytes": 0, "collective_calls": 0}
+                            "allreduce_bytes": 0, "collective_calls": 0,
+                            "graph_captures": 0, "graph_replays": 0}
 
 _OFF = contextlib.nullcontext()
 _on = False
