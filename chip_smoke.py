@@ -72,10 +72,9 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    goes to the temp directory, and a 64x64 render
    through the kernels must match the same render through the plain
    versions.
-4. Forward + backward, Cornell: the benchmark's timed gradient of the mean
-   image with respect to albedo, light radiance and vertices; all finite,
-   the albedo and radiance gradients non-zero. Prints the benchmark's JSON
-   line.
+4. Forward + backward, Cornell: the gradient of the mean image with respect
+   to albedo, light radiance and vertices at the same size and compaction;
+   all finite, the albedo and radiance gradients non-zero.
 5. Forward, mesh: the same as 3 on the 36,996-face mesh scene; the launch
    counts of closest_super, anyhit_super and unpack must be > 0, those of
    closest and anyhit 0, and the cull kernel's 80 as in 3. Also a 64x64
@@ -94,15 +93,15 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
    the refreshed cluster bounds contain every clustered triangle, the
    resumed run's losses and final parameters bit-equal to the uninterrupted
    run's, and one gradient evaluation repeated from the same state bit-equal.
-   Prints s/step, rays/s and the peak device memory, and the operations that
-   PyTorch's determinism check names during one gradient evaluation. Then a
+   Prints the peak device memory and the operations that PyTorch's
+   determinism check names during one gradient evaluation. Then a
    short Cornell fit (albedo, 64x64, 4 steps) through closest, anyhit, unpack
    and scatter.
 8. The fused-cull search at full width (`ops.intersect.FUSED_CULL` patched
    on): the forward frames of 3 and 5 again, each `torch.equal` to the list
    path's image, with the launch counts of the fused kernels > 0 and those of
    the list kernels and the cull kernel 0, the PyTorch cull never called;
-   forward + backward on the mesh through the benchmark's path, gradients
+   forward + backward on the mesh as phase 6 takes it, gradients
    bit-equal to the list path's at the same seed; s/frame and kernel
    launches per frame of both paths, taken in turns (list, fused, fused,
    list).
@@ -176,7 +175,7 @@ Phases, each fatal on failure (a traceback and a non-zero exit; the final
 14. Memory-bounded gradients (`PathTracerConfig.remat`) on the mesh of
    phase 2 at 256x256: first a 64x64 x 1 spp fwd+bwd without and twice
    with it (the process's first checkpointed call), then 64 spp fwd+bwd
-   with the benchmark's compaction, remat off and on in turns (off, on, on,
+   with phase 6's compaction, remat off and on in turns (off, on, on,
    off): s/iter, peak memory and launches by kernel of each; image and the
    three gradients `torch.equal` in all four runs; closest_super,
    anyhit_super, cull and scatter launched as often in each, unpack more
@@ -283,6 +282,7 @@ once.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
@@ -897,50 +897,19 @@ def soup_scene(device):
     return compile_scene(spec, device=device).scene
 
 
-def write_mesh_obj(path, scale=1.0):
-    """A seeded mesh of MESH_FACES = 36,996 faces as an OBJ file with uvs: a
-    displaced UV sphere of 136 x 136 quads (36,992 triangles) and a small
-    tetrahedron on top (4), of radius `scale`."""
-    import numpy as np
-
-    rows = cols = 136
-    rs = np.random.default_rng(2024)
-    th = np.linspace(0.02, np.pi - 0.02, rows + 1)[:, None]
-    ph = np.linspace(0.0, 2.0 * np.pi, cols + 1)[None, :]
-    bump = rs.normal(size=(rows + 1, cols))
-    r = 1.0 + 0.04 * np.concatenate([bump, bump[:, :1]], axis=1)  # closed seam
-    v = np.stack([r * np.sin(th) * np.cos(ph), r * np.cos(th),
-                  r * np.sin(th) * np.sin(ph)], axis=-1).reshape(-1, 3)
-    uv = np.stack(np.broadcast_arrays(ph / (2.0 * np.pi), 1.0 - th / np.pi),
-                  axis=-1).reshape(-1, 2)
-    i, j = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
-    a = (i * (cols + 1) + j).ravel()
-    b, c, d = a + 1, a + cols + 1, a + cols + 2
-    faces = np.concatenate([np.stack([a, c, b], 1), np.stack([b, c, d], 1)])
-    n = v.shape[0]
-    tet = np.array([[0.0, 1.35, 0.0], [0.1, 1.1, 0.1], [-0.1, 1.1, 0.1],
-                    [0.0, 1.1, -0.12]])
-    tet_f = np.array([[0, 1, 2], [0, 2, 3], [0, 3, 1], [1, 3, 2]]) + n
-    v = np.concatenate([v, tet])
-    uv = np.concatenate([uv, np.full((4, 2), 0.5)])
-    faces = np.concatenate([faces, tet_f]) + 1   # OBJ indices start at 1
-    check(faces.shape[0] == MESH_FACES, "mesh face count")
-    with open(path, "w") as f:
-        f.write("# seeded displaced sphere, %d faces\ng mesh\n" % MESH_FACES)
-        f.writelines("v %.7f %.7f %.7f\n" % tuple(p) for p in v * scale)
-        f.writelines("vt %.7f %.7f\n" % tuple(t) for t in uv)
-        f.writelines("f %d/%d %d/%d %d/%d\n" % (x, x, y, y, z, z) for x, y, z in faces)
-
-
 def mesh_obj(scale=1.0) -> str:
     """The path of the mesh's OBJ at `scale` in the temp directory, written
-    there at the first call."""
+    there at the first call: the benchmark's displaced sphere of 136 x 136
+    quads and a tetrahedron (MESH_FACES = 36,996 faces, with uvs; bumps from
+    seed 2024) of radius `scale` (`benchmark/scenes.py`)."""
+    from benchmark import scenes
+
     name = "mafrix_torch_mesh36996" + (f"_x{scale:g}" if scale != 1.0 else "")
     path = os.path.join(tempfile.gettempdir(), name + ".obj")
     if not os.path.exists(path):
         # written under another name first: a file at `path` is complete
         part = f"{path}.{os.getpid()}.part"
-        write_mesh_obj(part, scale)
+        scenes.write_mesh_obj(part, 136, 2024, scale)
         os.replace(part, path)
     return path
 
@@ -1821,6 +1790,44 @@ def phase_kernels(torch, dev):
     return phase_kernels_mesh(torch, dev, records, gidx, table.shape[0])
 
 
+def calibrated_config(scene, camera, width, height, depth):
+    """(config, survival): each bounce's live share in `trace_stats` of one
+    1-spp pass from the pixel centres (keys of seed 123), and from depth 2
+    compaction buckets sized from it with headroom (x1.12 + 0.01), so the
+    population-control kill stays a rare safety valve."""
+    from mafrixraytracing_torch.core import rng
+    from mafrixraytracing_torch.integrator import path as P
+
+    dev = scene.tri_v0.device
+    base = P.PathTracerConfig(max_depth=depth, wavefront=WAVEFRONT)
+    px, py = P.make_pixel_uv(width, height, dev)
+    keys = rng.pixel_keys(rng.root_key(123, dev), px.shape[0])
+    o, d = camera.get_rays((px + 0.5) / width, (py + 0.5) / height)
+    _, prof = P.trace_stats(scene, o, d, keys, base, return_profile=True)
+    survival = [float(p) for p in prof]
+    if depth < 2:
+        return base, survival
+    sched = [1.0] + [min(1.0, p * 1.12 + 0.01) for p in survival[1:]]
+    return dataclasses.replace(base, compact=tuple(sched)), survival
+
+
+GRAD_LEAVES = ("mat_albedo", "light_radiance", "tri_v0")
+
+
+def fwd_bwd(scene, camera, width, height, spp, seed, config, names=GRAD_LEAVES):
+    """Render and back-propagate the mean image to the scene fields `names`.
+    Returns the image and the gradients."""
+    from mafrixraytracing_torch.core import rng
+    from mafrixraytracing_torch.integrator import path as P
+
+    leaves = [getattr(scene, n).detach().clone().requires_grad_() for n in names]
+    s = scene.replace(**dict(zip(names, leaves)))
+    img = P.render_image(s, camera, width, height, spp,
+                         rng.root_key(seed, scene.tri_v0.device), config)
+    img.mean().backward()
+    return img.detach(), [x.grad for x in leaves]
+
+
 def phase_forward(torch, dev, make_spec, label, launched, idle):
     """The forward main path on `make_spec(width, height)`: `launched` names
     the kernels it must go through, `idle` those it must not touch. Its cull
@@ -1828,7 +1835,6 @@ def phase_forward(torch, dev, make_spec, label, launched, idle):
     `launched[:2]`), the PyTorch cull never."""
     import numpy as np
 
-    from mafrixraytracing_torch import bench
     from mafrixraytracing_torch.core import rng
     from mafrixraytracing_torch.film.image import write_png
     from mafrixraytracing_torch.film.tonemap import to_bytes, tonemap
@@ -1841,11 +1847,7 @@ def phase_forward(torch, dev, make_spec, label, launched, idle):
     check(cs.scene.tri_v0.is_cuda and cs.camera.position.is_cuda,
           "compile_scene did not default to the card")
     cuda.reset_launches()
-    t0 = time.perf_counter()
-    config, survival = bench.calibrated_config(cs.scene, cs.camera, W, H,
-                                               DEPTH)
-    queries = bench.count_queries_per_sample(cs.scene, cs.camera, W, H, config)
-    t1 = time.perf_counter()
+    config, survival = calibrated_config(cs.scene, cs.camera, W, H, DEPTH)
     calibration = dict(cuda.LAUNCHES)
     # the recorded counts are the frame's own: zeroed just before the render,
     # read just after
@@ -1856,13 +1858,10 @@ def phase_forward(torch, dev, make_spec, label, launched, idle):
                              config)
     torch.cuda.synchronize()
     launches = dict(cuda.LAUNCHES)
-    t2 = time.perf_counter()
     mean = float(img.mean())
-    print(f"  calibration {t1 - t0:.3f} s (launches {calibration}), queries per "
-          f"spp {queries:.0f}, survival {survival}, "
+    print(f"  calibration launches {calibration}, survival {survival}, "
           f"compact {[round(c, 4) for c in config.compact]}")
-    print(f"  forward {label} {W}x{H} x {spp} spp: {t2 - t1:.3f} s "
-          f"(first call, includes warm-up), mean {mean:.5f}, launches {launches}")
+    print(f"  forward {label} {W}x{H} x {spp} spp: mean {mean:.5f}, launches {launches}")
     check(bool(torch.isfinite(img).all()), "image has non-finite values")
     check(0.02 < mean < 0.5, f"image mean {mean} outside (0.02, 0.5)")
     for k in launched:
@@ -1874,11 +1873,6 @@ def phase_forward(torch, dev, make_spec, label, launched, idle):
     check(launches["cull"] == 80 == launches[launched[0]] + launches[launched[1]],
           f"the {label} frame's 80 queries did not each launch the cull kernel")
     check(not culls, f"the {label} frame called the PyTorch cull")
-    with torch.no_grad():
-        t3 = time.perf_counter()
-        P.render_image(cs.scene, cs.camera, W, H, spp, rng.root_key(1), config)
-        torch.cuda.synchronize()
-        print(f"  forward again: {time.perf_counter() - t3:.3f} s/frame")
     png = os.path.join(tempfile.gettempdir(), f"mafrix_torch_{label}.png")
     write_png(png, to_bytes(tonemap(img)).cpu().numpy())
     print(f"  wrote {png}")
@@ -1923,30 +1917,30 @@ def phase_textured(torch, untextured):
     check(diff > 1e-3, "the texture did not change the picture")
 
 
-def phase_fwd_bwd(torch, spec=None, scene_name=None, iters=3, launched=()):
-    """`bench.run`'s forward + backward; `launched` names the kernels it must
-    go through (their launches are read over the whole run)."""
-    from mafrixraytracing_torch import bench
+def phase_fwd_bwd(torch, make_spec, launched=()):
+    """Forward + backward of the mean image to GRAD_LEAVES on
+    `make_spec(WIDTH, HEIGHT)` at SPP with the calibrated compaction;
+    `launched` names the kernels it must go through (their launches are read
+    over the calibration and the run)."""
     from mafrixraytracing_torch.ops import cuda
+    from mafrixraytracing_torch.scene.compiler import compile_scene
 
     torch.cuda.reset_peak_memory_stats()
     cuda.reset_launches()
-    record, grads = bench.run(WIDTH, HEIGHT, SPP, DEPTH, iters=iters, spec=spec,
-                              scene_name=scene_name)
+    cs = compile_scene(make_spec(WIDTH, HEIGHT))
+    config, _ = calibrated_config(cs.scene, cs.camera, WIDTH, HEIGHT, DEPTH)
+    _, grads = fwd_bwd(cs.scene, cs.camera, WIDTH, HEIGHT, SPP, 1, config)
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"launches over {iters + 1} iterations and calibration {launches}")
+          f"launches over the calibration and the fwd+bwd {launches}")
     for k in launched:
         check(launches.get(k, 0) > 0, f"kernel {k} was not launched by the fwd+bwd")
-    names = ("mat_albedo", "light_radiance", "tri_v0")
-    for n, g in zip(names, grads):
+    for n, g in zip(GRAD_LEAVES, grads):
         check(g is not None and bool(torch.isfinite(g).all()),
               f"gradient of {n} is not finite")
         print(f"  grad {n}: |g|max {float(g.abs().max()):.4g}")
     check(float(grads[0].abs().max()) > 0, "albedo gradient is zero")
     check(float(grads[1].abs().max()) > 0, "radiance gradient is zero")
-    print(json.dumps(record))
-    return record
 
 
 def bounds_contain_triangles(torch, scene) -> bool:
@@ -1993,7 +1987,6 @@ def phase_fit(torch, dev):
     import math
     import shutil
 
-    from mafrixraytracing_torch import bench
     from mafrixraytracing_torch.core import rng
     from mafrixraytracing_torch.integrator import path as P
     from mafrixraytracing_torch.ops import cuda
@@ -2005,8 +1998,7 @@ def phase_fit(torch, dev):
     cs = compile_scene(mesh_spec(W, H, scale=FIT_SCALE))
     scene, camera = cs.scene, cs.camera
     check(scene.cluster_min.shape[0] == 512, "the fit's mesh must have 512 clusters")
-    config, _ = bench.calibrated_config(scene, camera, W, H, DEPTH)
-    queries = bench.count_queries_per_sample(scene, camera, W, H, config)
+    config, _ = calibrated_config(scene, camera, W, H, DEPTH)
     sc = FIT_SCALE
     with torch.no_grad():
         target = P.render_image(scene, camera, W, H, SPP, rng.root_key(0), config)
@@ -2029,15 +2021,13 @@ def phase_fit(torch, dev):
     norms = []
     torch.cuda.reset_peak_memory_stats()
     cuda.reset_launches()
-    t0 = time.perf_counter()
     ref, ref_losses = inverse.fit(start, camera, target, steps=steps,
                                   log_every=1, **common)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     launches = dict(cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  fit mesh36996 {W}x{H} x {spp} spp, {steps} steps (the first includes "
-          f"warm-up): losses {[round(l, 5) for l in ref_losses]}, launches {launches}")
+    print(f"  fit mesh36996 {W}x{H} x {spp} spp, {steps} steps: losses "
+          f"{[round(l, 5) for l in ref_losses]}, launches {launches}, peak device "
+          f"memory {peak:.2f} GiB")
     check(all(math.isfinite(l) for l in ref_losses), "a loss is not finite")
     check(sum(ref_losses[-2:]) / 2 < ref_losses[0], "the fit did not reduce the loss")
     for k in ("closest_super", "anyhit_super", "unpack", "scatter"):
@@ -2054,14 +2044,11 @@ def phase_fit(torch, dev):
         ck = os.path.join(ckdir, "fit_ck")
         inverse.fit(start, camera, target, steps=steps // 2, checkpoint_path=ck,
                     **common)
-        t1 = time.perf_counter()
         res, res_losses = inverse.fit(
             start, camera, target, steps=steps, checkpoint_path=ck,
             callback=lambda i, loss, params: norms.append(float(torch.sqrt(
                 sum((p.detach() ** 2).sum() for p in params.values())))),
             **common)
-        torch.cuda.synchronize()
-        s_step = (time.perf_counter() - t1) / len(res_losses)
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     check(len(res_losses) == steps - steps // 2, "the restart did not resume")
@@ -2086,9 +2073,6 @@ def phase_fit(torch, dev):
     check(math.isfinite(gnorm) and gnorm > 0, "the gradient norm is not finite")
     print(f"  operations named by PyTorch's determinism check in one gradient "
           f"evaluation: {nondeterministic_ops(torch, evaluate) or 'none'}")
-    print(f"  fit mesh36996: {s_step:.4f} s/step ({queries * spp / s_step / 1e6:.2f}M "
-          f"rays/s fwd+bwd+update, {queries:.0f} queries per spp), first {steps} "
-          f"steps {seconds:.2f} s, peak device memory {peak:.2f} GiB")
 
     # the flat path trains too: Cornell, albedo only
     from mafrixraytracing_torch.scene.builtin import cornell_box
@@ -2127,7 +2111,6 @@ def phase_fused(torch, list_images):
     must launch its two fused kernels and no other search kernel, K
     included, and never call the PyTorch cull. -> the route's launch counts
     of one frame."""
-    from mafrixraytracing_torch import bench
     from mafrixraytracing_torch.core import rng
     from mafrixraytracing_torch.integrator import path as P
     from mafrixraytracing_torch.ops import cuda
@@ -2161,7 +2144,7 @@ def phase_fused(torch, list_images):
         cs = compile_scene(make_spec(W, H))
         scene, camera = cs.scene, cs.camera
         with fused_cull():
-            config, _ = bench.calibrated_config(scene, camera, W, H, DEPTH)
+            config, _ = calibrated_config(scene, camera, W, H, DEPTH)
 
         def frame(seed):
             with torch.no_grad():
@@ -2190,8 +2173,8 @@ def phase_fused(torch, list_images):
               f"the default path did not run its kernels on {label}")
         report(f"forward {label}", runs)
 
-    # forward + backward on the mesh (still `scene`), the benchmark's path
-    runs = [counted(f, lambda: bench.fwd_bwd(scene, camera, W, H, SPP, 7, config))
+    # forward + backward on the mesh (still `scene`), as phase 6 takes it
+    runs = [counted(f, lambda: fwd_bwd(scene, camera, W, H, SPP, 7, config))
             for f in (False, True, True, False)]
     (img_l, grads_l), (img_f, grads_f) = runs[0][0], runs[1][0]
     same = torch.equal(img_l, img_f) and all(
@@ -3090,10 +3073,9 @@ SPHERE_LEAVES = ("mat_albedo", "light_radiance", "tri_v0", "sph_center", "sph_ra
 
 
 def run_fwd_bwd(torch, cs, spp, config, names=None):
-    """`bench.fwd_bwd` on `cs` at WIDTH x HEIGHT (with gradients to `names`
+    """`fwd_bwd` on `cs` at WIDTH x HEIGHT (with gradients to `names`
     where given): (image, gradients, s, peak GiB, peak GiB above what was
     allocated before, launches by kernel)."""
-    from mafrixraytracing_torch import bench
     from mafrixraytracing_torch.ops import cuda
 
     torch.cuda.synchronize()
@@ -3101,8 +3083,8 @@ def run_fwd_bwd(torch, cs, spp, config, names=None):
     torch.cuda.reset_peak_memory_stats()
     cuda.reset_launches()
     t0 = time.perf_counter()
-    img, grads = bench.fwd_bwd(cs.scene, cs.camera, WIDTH, HEIGHT, spp, 0, config,
-                               names or bench.GRAD_LEAVES)
+    img, grads = fwd_bwd(cs.scene, cs.camera, WIDTH, HEIGHT, spp, 0, config,
+                         names or GRAD_LEAVES)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(cuda.LAUNCHES)
@@ -3119,16 +3101,13 @@ def phase_remat(torch):
     """Memory-bounded gradients (`PathTracerConfig.remat`) on the mesh of
     phase 2: bit-equal to the plain graph, the searches never run again, and
     the memory saved at 512 spp, where `remat` unset chooses checkpoints."""
-    import dataclasses
-
-    from mafrixraytracing_torch import bench
     from mafrixraytracing_torch.ops import remat
     from mafrixraytracing_torch.scene.compiler import compile_scene
 
     t_phase = time.perf_counter()
     W, H = WIDTH, HEIGHT
     cs = compile_scene(mesh_spec(W, H))
-    config, _ = bench.calibrated_config(cs.scene, cs.camera, W, H, DEPTH)
+    config, _ = calibrated_config(cs.scene, cs.camera, W, H, DEPTH)
     modes = {"off": dataclasses.replace(config, remat=False),
              "on": dataclasses.replace(config, remat=True),
              "unset": config}
@@ -3143,8 +3122,8 @@ def phase_remat(torch):
     small = compile_scene(mesh_spec(SMALL, SMALL))
     for name in ("off", "on", "on"):
         t0 = time.perf_counter()
-        bench.fwd_bwd(small.scene, small.camera, SMALL, SMALL, 1, 0,
-                      dataclasses.replace(modes[name], compact=()))
+        fwd_bwd(small.scene, small.camera, SMALL, SMALL, 1, 0,
+                dataclasses.replace(modes[name], compact=()))
         torch.cuda.synchronize()
         print(f"  remat {name}, {SMALL}x{SMALL} x 1 spp fwd+bwd (the process's first "
               f"checkpointed call is the second): {time.perf_counter() - t0:.3f} s")
@@ -3174,7 +3153,7 @@ def phase_remat(torch):
     # J on the checkpointed backward's own cotangents, and the first searches
     rec = {}
     with recorded(rec):
-        bench.fwd_bwd(cs.scene, cs.camera, W, H, SPP, 0, modes["on"])
+        fwd_bwd(cs.scene, cs.camera, W, H, SPP, 0, modes["on"])
     held = hold_recorded(torch, rec, "remat mesh fwd+bwd", first_of_each=True,
                          require_hits=True)
     check(held.get("scatter_kernel", 0) == l0["scatter"],
@@ -3227,9 +3206,6 @@ def graph_peaks(torch):
     """Cornell and `sphere_triad` (its gradients also to the spheres) at
     WIDTH x HEIGHT with their own calibrated compaction, remat off: {name:
     (peak GiB at SPP, at REMAT_SPP[0], config)}."""
-    import dataclasses
-
-    from mafrixraytracing_torch import bench
     from mafrixraytracing_torch.scene.builtin import cornell_box, sphere_triad
     from mafrixraytracing_torch.scene.compiler import compile_scene
 
@@ -3237,7 +3213,7 @@ def graph_peaks(torch):
     for name, spec, names in (("cornell", cornell_box, None),
                               ("sphere_triad", sphere_triad, SPHERE_LEAVES)):
         cs = compile_scene(spec(WIDTH, HEIGHT))
-        config, _ = bench.calibrated_config(cs.scene, cs.camera, WIDTH, HEIGHT, DEPTH)
+        config, _ = calibrated_config(cs.scene, cs.camera, WIDTH, HEIGHT, DEPTH)
         off = dataclasses.replace(config, remat=False)
         peaks = []
         for spp in (SPP, REMAT_SPP[0]):
@@ -3437,31 +3413,6 @@ def phase_rng(torch, dev):
     return main
 
 
-def fwd_bwd_in_turns(parent: str) -> int:
-    """`python -m mafrixraytracing_torch.bench` on the mesh of phase 2
-    (BENCH_OBJ, 256x256 x 64 spp fwd+bwd, the benchmark's compaction) from
-    the checkout `parent` and from this one, in turns (parent, this, this,
-    parent), one process each: the seconds of an iteration and rays/s of
-    each. Returns non-zero if a run failed."""
-    import subprocess
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, BENCH_OBJ=mesh_obj(), BENCH_ITERS="3")
-    for label, cwd in (("parent", parent), ("change", here), ("change", here),
-                       ("parent", parent)):
-        out = subprocess.run([sys.executable, "-m", "mafrixraytracing_torch.bench"],
-                             cwd=cwd, env=env, capture_output=True, text=True,
-                             timeout=900)
-        if out.returncode:
-            print(out.stdout[-2000:], out.stderr[-4000:], sep="\n")
-            return out.returncode
-        rec = json.loads(out.stdout.strip().splitlines()[-1])
-        print(f"  {label}: {rec['detail']['seconds_per_iter']:.4f} s/iter, "
-              f"{rec['value']:.1f} rays/s, {rec['detail']['device']}, "
-              f"{rec['detail']['power_limit']}")
-    return 0
-
-
 def phase_graph(torch, dev):
     """The live preview's pass replayed as one CUDA graph against the eager
     pass (docstring, phase 16)."""
@@ -3575,7 +3526,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from mafrixraytracing_torch import bench
+    from mafrixraytracing_torch.core.device import device_info
     from mafrixraytracing_torch.ops import cuda
 
     dev = torch.device("cuda", 0)
@@ -3585,10 +3536,8 @@ def main() -> int:
         cuda.lib()
         time_walks(torch, dev, *sys.argv[2:4])
         return 0
-    if sys.argv[1:2] == ["--turns"]:
-        return fwd_bwd_in_turns(sys.argv[2])
     print("[1] device and build")
-    info = bench.device_info()
+    info = device_info()
     check(info["nvidia_smi"], "nvidia-smi did not report the card")
     print(f"  {info['nvidia_smi']}  torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -3609,7 +3558,7 @@ def main() -> int:
                                              idle=two_level + fused)
 
     print("[4] forward + backward, Cornell")
-    phase_fwd_bwd(torch, launched=flat + RNG)
+    phase_fwd_bwd(torch, cornell_box, launched=flat + RNG)
 
     print("[5] forward, mesh of 36,996 faces")
     mesh_launches, small, mesh_img = phase_forward(
@@ -3621,8 +3570,7 @@ def main() -> int:
     launches.update({k: mesh_launches[k] for k in two_level + ("unpack", "cull")})
 
     print("[6] forward + backward, mesh of 36,996 faces")
-    phase_fwd_bwd(torch, mesh_spec(WIDTH, HEIGHT), "mesh36996", iters=2,
-                  launched=two_level + RNG)
+    phase_fwd_bwd(torch, mesh_spec, launched=two_level + RNG)
 
     print("[7] fit, mesh of 36,996 faces (and a short Cornell fit)")
     launches["scatter"] = phase_fit(torch, dev)["scatter"]

@@ -43,9 +43,8 @@ import time
 
 import torch
 
-from mafrixraytracing_torch.bench import device_fields
 from mafrixraytracing_torch.core import rng
-from mafrixraytracing_torch.core.device import resolve
+from mafrixraytracing_torch.core.device import device_fields, resolve
 from mafrixraytracing_torch.examples.render_cornell import positive_int
 from mafrixraytracing_torch.integrator import path as P
 from mafrixraytracing_torch.ops import cuda

@@ -24,9 +24,8 @@ import time
 
 import torch
 
-from mafrixraytracing_torch.bench import device_fields
 from mafrixraytracing_torch.core import rng
-from mafrixraytracing_torch.core.device import resolve
+from mafrixraytracing_torch.core.device import device_fields, resolve
 from mafrixraytracing_torch.film.image import write_png
 from mafrixraytracing_torch.film.tonemap import to_bytes, tonemap
 from mafrixraytracing_torch.integrator.path import PathTracerConfig, render_image

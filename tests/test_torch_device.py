@@ -1,8 +1,8 @@
 """Where the port builds and launches, on the CPU: `core.device.resolve`
 gives the current CUDA card, every kernel launch goes through
 `ops.cuda.launch`, which makes the operands' device current and refuses
-operands on two devices, and the scatter-add's card test holds the plain
-version to a float64 sum.
+operands on two devices, the scatter-add's card test holds the plain
+version to a float64 sum, and `device_fields` names no card on the CPU.
 
 Imports no JAX. `torch.cuda` is patched where a card would be needed.
 
@@ -19,6 +19,7 @@ import torch
 
 import test_torch_kernels as tk
 from mafrixraytracing_torch.core import rng
+from mafrixraytracing_torch.core import device as core_device
 from mafrixraytracing_torch.core.device import resolve
 from mafrixraytracing_torch.ops import cuda
 from mafrixraytracing_torch.ops import intersect as oi
@@ -53,6 +54,27 @@ def test_resolve_none_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve(None)
     assert resolve("cpu") == torch.device("cpu")
+
+
+def test_device_fields_on_the_cpu(monkeypatch):
+    """A record made on the CPU names no card; `device_info` reads
+    nvidia-smi's line, and without nvidia-smi falls back to torch's name."""
+    cpu = {"device": "cpu", "power_limit": "not measured"}
+    assert core_device.device_fields("cpu") == cpu
+    assert core_device.device_fields(torch.device("cpu")) == cpu
+    line = "NVIDIA H100 80GB HBM3, 700.00 W"
+    monkeypatch.setattr(core_device.subprocess, "run",
+                        lambda *a, **k: SimpleNamespace(stdout=line + "\n"))
+    assert core_device.device_info() == {"name": "NVIDIA H100 80GB HBM3",
+                                         "power_limit": "700.00 W", "nvidia_smi": line}
+
+    def no_smi(*a, **k):
+        raise FileNotFoundError("nvidia-smi")
+
+    monkeypatch.setattr(core_device.subprocess, "run", no_smi)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "a card")
+    assert core_device.device_info() == {"name": "a card", "power_limit": "not measured",
+                                         "nvidia_smi": None}
 
 
 class FakeLib:

@@ -262,7 +262,7 @@ def test_runs_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
         "import mafrixraytracing_torch as mt\n"
-        "from mafrixraytracing_torch import bench\n"
+        "from mafrixraytracing_torch import bench_scaling\n"
         "from mafrixraytracing_torch.core import rng\n"
         "from mafrixraytracing_torch.scene.builtin import cornell_box\n"
         "cs = mt.compile_scene(cornell_box(8, 8), device='cpu')\n"

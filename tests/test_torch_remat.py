@@ -1,8 +1,9 @@
 """`PathTracerConfig.remat`: memory-bounded gradients, on the CPU.
 
 The port against itself, on Cornell 16x16 at 4 spp with a wavefront of 256
-rays (four checkpointed groups), depth 3 and 5, with the compaction that
-`bench.calibrated_config` sizes: the image and the gradients to
+rays (four checkpointed groups), depth 3 and 5, with the benchmark's compaction
+(each bounce's live share in one 1-spp pass from the pixel centres, x1.12 +
+0.01): the image and the gradients to
 `mat_albedo`, `light_radiance` and `tri_v0` are `torch.equal` with `remat`
 on and off. The searches (`ops.intersect._prep`) run as often in a fwd+bwd
 with `remat` as without; the attribute fetch (`ops.unpack.gather_unpack`,
@@ -33,7 +34,6 @@ import numpy as np
 import pytest
 import torch
 
-from mafrixraytracing_torch import bench
 from mafrixraytracing_torch.core import rng as trng
 from mafrixraytracing_torch.integrator import path as TP
 from mafrixraytracing_torch.ops import intersect as oi
@@ -64,11 +64,20 @@ def cornell():
 
 @pytest.fixture(scope="module")
 def configs(cornell):
-    """The benchmark's compaction at depth 3 and 5, on a wavefront of 256."""
+    """The benchmark's compaction at depth 3 and 5, on a wavefront of 256:
+    each bounce's live share in `trace_stats` of one 1-spp pass from the
+    pixel centres (keys of seed 123), x1.12 + 0.01."""
     _, ts, tcam = cornell
-    return {depth: dataclasses.replace(
-        bench.calibrated_config(ts, tcam, W, H, depth)[0], wavefront=WAVEFRONT)
-        for depth in (3, 5)}
+    px, py = TP.make_pixel_uv(W, H, "cpu")
+    keys = trng.pixel_keys(trng.root_key(123, "cpu"), px.shape[0])
+    o, d = tcam.get_rays((px + 0.5) / W, (py + 0.5) / H)
+    out = {}
+    for depth in (3, 5):
+        base = TP.PathTracerConfig(max_depth=depth, wavefront=1 << 19)
+        _, prof = TP.trace_stats(ts, o, d, keys, base, return_profile=True)
+        sched = [1.0] + [min(1.0, float(p) * 1.12 + 0.01) for p in prof[1:]]
+        out[depth] = dataclasses.replace(base, compact=tuple(sched), wavefront=WAVEFRONT)
+    return out
 
 
 def fwd_bwd(ts, tcam, config, counts=None, names=LEAVES):

@@ -176,22 +176,3 @@ def test_two_fit_steps_open_optimizer_and_refresh(monkeypatch, capsys):
     got = [float(re.search(r"([0-9.]+)M lanes/s$", ln).group(1)) for ln in lines]
     assert got == pytest.approx([float(n) for n in lanes], abs=0.01)
 
-
-def test_profile_bench_report_skips_the_span_marks(capsys):
-    """`record_function` leaves a mark on the device's timeline for each span:
-    the report counts neither it as a launch nor its length as busy time."""
-    from types import SimpleNamespace
-
-    from mafrixraytracing_torch import profile_bench
-
-    def ev(name, us, device=True):
-        kind = torch.autograd.DeviceType.CUDA if device else torch.autograd.DeviceType.CPU
-        return SimpleNamespace(name=name, device_type=kind,
-                               time_range=SimpleNamespace(elapsed_us=lambda: us))
-
-    events = [ev("closest_kernel(float const*)", 300.0), ev("void add_kernel()", 200.0),
-              ev("mfx.render", 5000.0), ev("mfx.render", 5000.0, device=False)]
-    profile_bench._report("fwd", SimpleNamespace(events=lambda: events), 0.001)
-    out = capsys.readouterr().out
-    assert "device busy 0.0005 s" in out and "kernel launches 2" in out
-    assert "mfx." not in out and "A 0.300 ms in 1" in out
